@@ -2,19 +2,34 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the sources in this checkout,
+Builds the hand-written CUDA kernels from the sources in this checkout
+(K1 `remap_codes` and K2 `unpack_codes`, one nvcc each, concurrently),
 holds each against its plain PyTorch version on the card and times it,
-then drives the port's main path end to end: TPC-H Q1 and Q6 from SQL
-over a synthetic lineitem at SF10 (60 M rows) in the hot deployment
-(every column resident) and the cold one (the hot-tier cap below the
-table's wire bytes, so the packable columns live bit-packed on the card
-and unpack through the K2 kernel).  Rows are checked against a plain
-numpy computation over the generator's own arrays, and at SF1 against
-the port's host engine.
+then drives the port's paths end to end from SQL over a synthetic
+lineitem:
 
-Every (bits, rows) shape the cold queries hand K2 is recorded, and K2
-is held against its plain version and timed again on those very inputs:
-the `kernels` line reports the shape the path launched most.
+- at SF10 (60 M rows), hot (every column resident) and cold (the
+  hot-tier cap below the table's wire bytes, so the packable columns
+  live bit-packed on the card and unpack through K2): TPC-H Q1 and Q6
+  (dense aggregation), `ck1` (Q1 grouped by a computed string key,
+  lower(l_returnflag): sort mode, K1 with an int32 mapping) and `ck2`
+  (a Q6-shaped query grouped by ascii(l_linestatus): K1 with an int64
+  mapping); hot only, `sa` (sort mode over ~100 k l_orderkey groups)
+  and `tn` (a two-key TopN);
+- at SF1 (6 M rows), TPC-H Q18's inner aggregation `q18i` (~1.5 M
+  groups, beyond the sort-mode budget of 2**17 groups per dispatch) and
+  `q18p`, the same with Q1's ship-date filter: both overflow the
+  budget; q18p takes the peel rung (its scan and filter stay on the
+  card, the aggregation runs on the host), q18i, whose device head
+  would be a bare scan, leaves the fused program for the per-region
+  rung, as the JAX package does.
+
+Rows are checked against a plain numpy computation over the generator's
+own arrays, and Q1/Q6 at SF1 against the port's host engine.  Each
+cell's kernel launches are counted from zero; every input the path
+hands K1 and K2 is recorded, and each kernel is held against its plain
+version and timed again on those very inputs: the `kernels` line
+reports the input the path launched most.
 
 Output: human-readable lines, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as the last line
@@ -24,9 +39,9 @@ phase fails.
 
     python3 chip_smoke.py [--profile]
 
-`--profile` adds a torch.profiler breakdown of one steady Q1 and Q6 in
-each deployment, with the operators that take the most device and host
-time.
+`--profile` adds a torch.profiler breakdown of one steady Q1, Q6, ck1
+and ck2 in each deployment and of `sa` and `tn` hot, with the operators
+that take the most device and host time.
 """
 
 from __future__ import annotations
@@ -41,9 +56,29 @@ import time
 
 SF10_ROWS = 60_000_000
 SF1_ROWS = 6_000_000
-KERNEL_ROWS = 64 << 20   # 64 Mi rows per unpack, the scale of one scan
+KERNEL_ROWS = 64 << 20   # 64 Mi rows per kernel call, the scale of a scan
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SEED = 7
+
+#: the second slice's cells, in the order they run
+CK1 = ("select lower(l_returnflag), l_linestatus, sum(l_quantity),"
+       " sum(l_extendedprice * (1 - l_discount)), avg(l_discount), count(*)"
+       " from lineitem where l_shipdate <= '1998-09-02'"
+       " group by lower(l_returnflag), l_linestatus")
+CK2 = ("select ascii(l_linestatus), count(*),"
+       " sum(l_extendedprice * l_discount) from lineitem"
+       " where l_shipdate >= '1994-01-01' and l_shipdate < '1995-01-01'"
+       " group by ascii(l_linestatus)")
+SA = ("select l_orderkey, sum(l_quantity), count(*) from lineitem"
+      " where l_orderkey <= 100000 group by l_orderkey")
+TN = ("select l_orderkey, l_extendedprice from lineitem"
+      " where l_shipdate >= '1995-03-15'"
+      " order by l_extendedprice desc, l_orderkey limit 10")
+Q18I = ("select l_orderkey, sum(l_quantity) from lineitem"
+        " group by l_orderkey having sum(l_quantity) > 300")
+Q18P = ("select l_orderkey, sum(l_quantity) from lineitem"
+        " where l_shipdate <= '1998-09-02'"
+        " group by l_orderkey having sum(l_quantity) > 300")
 
 
 def log(*a):
@@ -178,15 +213,151 @@ def path_kernel_phase(seen) -> list:
     return out
 
 
+def check_and_time_k1(codes, mapping, n: int, flush, timed=True) -> dict:
+    """K1 on one input: exact equality with the plain version (raises
+    otherwise), then the kernel, the plain version and the library
+    gather `mapping[idx]` timed; the library call is handed the codes
+    already widened and clipped (idx), so it leaves out the clip.  The
+    bound is the bytes K1 must move: n codes in, n values out, the
+    mapping once."""
+    import torch
+
+    from tidb_tpu_torch.copr.cuda import remap_codes, remap_codes_plain
+
+    cap = mapping.shape[0]
+    got = remap_codes(codes, mapping, n)
+    want = remap_codes_plain(codes, mapping, n)
+    torch.cuda.synchronize()
+    tag = (f"codes {str(codes.dtype)[6:]} map {str(mapping.dtype)[6:]} "
+           f"cap {cap} n={n}")
+    if got.shape != (n,) or got.dtype != mapping.dtype:
+        raise AssertionError(f"remap_codes {tag}: {tuple(got.shape)} "
+                             f"{got.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64))
+              .abs().max().item())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"remap_codes {tag}: max |err| {err}")
+    nbytes = (n * (codes.element_size() + mapping.element_size())
+              + cap * mapping.element_size())
+    r = {"code": str(codes.dtype)[6:], "map": str(mapping.dtype)[6:],
+         "cap": cap, "n": n, "max_abs_err": err, "tag": tag,
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    if timed:
+        idx = codes.reshape(n).to(torch.int64).clamp(0, cap - 1)
+        r["ms"] = time_cuda(lambda: remap_codes(codes, mapping, n),
+                            flush=flush)
+        r["plain_ms"] = time_cuda(
+            lambda: remap_codes_plain(codes, mapping, n), flush=flush)
+        r["library_ms"] = time_cuda(lambda: mapping[idx], flush=flush)
+        del idx
+    return r
+
+
+def k1_phase():
+    """K1 against its plain version on the card: uint8 and int64 codes
+    (out of range of the mapping included: uint8 codes up to 255 and
+    int64 codes from -3 to cap+5), mappings of cap 4 (int32 and int64,
+    staged in shared memory), 2**16 and 2**22 (int32, read through the
+    read-only cache), at n = 8 and 64 Mi rows: exact equality; timing
+    at 64 Mi rows."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    for code_dt in (torch.uint8, torch.int64):
+        for cap, map_dt in ((4, torch.int32), (4, torch.int64),
+                            (1 << 16, torch.int32), (1 << 22, torch.int32)):
+            lo, hi = (0, 255) if code_dt == torch.uint8 else (-3, cap + 5)
+            mapping = torch.randint(-(1 << 31), 1 << 31, (cap,),
+                                    device=dev, generator=gen).to(map_dt)
+            for n in (8, KERNEL_ROWS):
+                codes = torch.randint(lo, hi + 1, (n,), device=dev,
+                                      generator=gen).to(code_dt)
+                r = check_and_time_k1(codes, mapping, n, flush,
+                                      timed=n == KERNEL_ROWS)
+                del codes
+            log(f"K1 remap_codes {r['tag']}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bytes']} bytes at 3.35 TB/s), exact at n=8 and "
+                f"n={n}")
+    del flush
+    torch.cuda.empty_cache()
+
+
+def record_remap_inputs():
+    """Route the path's K1 calls through a recorder: (code dtype, map
+    dtype, cap, n) -> [calls, the first codes, its mapping].  Returns
+    (record, restore)."""
+    import tidb_tpu_torch.copr.cuda as kcuda
+
+    real = kcuda.remap_codes
+    seen = {}
+
+    def recorder(codes, mapping, n):
+        key = (str(codes.dtype), str(mapping.dtype), int(mapping.shape[0]),
+               n)
+        rec = seen.setdefault(key, [0, codes, mapping])
+        rec[0] += 1
+        return real(codes, mapping, n)
+
+    kcuda.remap_codes = recorder
+
+    def restore():
+        kcuda.remap_codes = real
+
+    return seen, restore
+
+
+def path_k1_phase(seen) -> list:
+    """K1 against its plain version on the inputs the path gave it, one
+    per (code dtype, map dtype, cap, n): exact equality, timing there."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8,
+                        device=torch.device("cuda"))
+    out = []
+    for _key, (calls, codes, mapping) in sorted(seen.items()):
+        r = check_and_time_k1(codes, mapping, codes.numel(), flush)
+        r["calls"] = calls
+        out.append(r)
+        log(f"K1 on the path's input {r['tag']} ({calls} calls): kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, "
+            f"exact")
+    del flush
+    torch.cuda.empty_cache()
+    if not out:
+        raise AssertionError("no remap input was recorded")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # independent reference: numpy over the generator's arrays
 # ---------------------------------------------------------------------------
 
-def numpy_reference(n: int):
-    """Q1 and Q6 rows computed with numpy over `lineitem_chunks(n)`:
+def dec(iv: int, scale: int):
+    """A decimal as the session returns it: a float while the scaled int
+    is exact in one (|iv| <= 2**53), past that an exact string."""
+    if abs(iv) <= 1 << 53:
+        return iv / 10**scale
+    sign, a = ("-" if iv < 0 else ""), abs(iv)
+    return f"{sign}{a // 10**scale}.{a % 10**scale:0{scale}d}"
+
+
+def avg6(total: int, cnt: int):
+    """avg of a scale-2 decimal at the output's scale 6, rounded half up
+    (positive values)."""
+    return dec((total * 10**4 + cnt // 2) // cnt, 6)
+
+
+def numpy_reference(n: int) -> dict:
+    """The SF10 cells' rows computed with numpy over `lineitem_chunks(n)`:
     int64 per-group counts and scaled sums (exact, folded into Python
     ints), averages rounded half up to the output's scale 6, values
-    rendered as the session renders a decimal (scaled int / 10**scale)."""
+    rendered as the session renders a decimal (scaled int / 10**scale).
+    Returns name -> rows for q1, q6, ck1, ck2, sa and tn."""
     import numpy as np
 
     from tidb_tpu_torch.tpch_data import LINEITEM_DICTS, lineitem_chunks
@@ -194,12 +365,18 @@ def numpy_reference(n: int):
 
     q1_cut = parse_date("1998-09-02")
     q6_lo, q6_hi = parse_date("1994-01-01"), parse_date("1995-01-01")
+    tn_lo = parse_date("1995-03-15")
+    SA_MAX = 100_000
     G = 6  # returnflag (3) x linestatus (2)
     acc = {k: [0] * G for k in ("cnt", "qty", "price", "disc_price",
                                 "charge", "disc")}
     q6 = 0
     q6_rows = 0
-    for (_ok, qty, price, disc, tax, rf, ls, ship) in lineitem_chunks(
+    ck2 = {j: [0, 0] for j in range(2)}  # linestatus -> [count, sum]
+    sa_qty = np.zeros(SA_MAX + 1, np.int64)
+    sa_cnt = np.zeros(SA_MAX + 1, np.int64)
+    tn = []  # (price, orderkey) candidates
+    for (ok, qty, price, disc, tax, rf, ls, ship) in lineitem_chunks(
             n, SEED):
         m = ship <= q1_cut
         g = rf.astype(np.int64) * 2 + ls
@@ -213,35 +390,70 @@ def numpy_reference(n: int):
             acc["disc_price"][k] += int(dp[s].sum())
             acc["charge"][k] += int(ch[s].sum())
             acc["disc"][k] += int(disc[s].sum())
-        m6 = ((ship >= q6_lo) & (ship < q6_hi) & (disc >= 5) & (disc <= 7)
-              & (qty < 2400))
+        in94 = (ship >= q6_lo) & (ship < q6_hi)
+        m6 = in94 & (disc >= 5) & (disc <= 7) & (qty < 2400)
         q6 += int((price[m6] * disc[m6]).sum())  # scale 4
         q6_rows += int(np.count_nonzero(m6))
+        for j in range(2):
+            s = in94 & (ls == j)
+            ck2[j][0] += int(np.count_nonzero(s))
+            ck2[j][1] += int((price[s] * disc[s]).sum())  # scale 4
+        s = ok <= SA_MAX
+        sa_qty += np.bincount(ok[s], weights=qty[s],
+                              minlength=SA_MAX + 1).astype(np.int64)
+        sa_cnt += np.bincount(ok[s], minlength=SA_MAX + 1)
+        s = ship >= tn_lo
+        p, o = price[s], ok[s]
+        kth = np.partition(p, len(p) - 10)[len(p) - 10]
+        tn.extend(zip(p[p >= kth].tolist(), o[p >= kth].tolist()))
 
-    def dec(iv: int, scale: int):
-        """A decimal as the session returns it: a float while the scaled
-        int is exact in one (|iv| <= 2**53), past that an exact string."""
-        if abs(iv) <= 1 << 53:
-            return iv / 10**scale
-        sign, a = ("-" if iv < 0 else ""), abs(iv)
-        return f"{sign}{a // 10**scale}.{a % 10**scale:0{scale}d}"
-
-    def avg6(total, cnt):  # scale 2 -> 6, round half up (positive)
-        return dec((total * 10**4 + cnt // 2) // cnt, 6)
-
-    q1 = []
+    out = {"q1": [], "ck1": []}
     for k in range(G):
         c = acc["cnt"][k]
         if not c:
             continue
-        q1.append((
-            LINEITEM_DICTS[5][k // 2], LINEITEM_DICTS[6][k % 2],
-            dec(acc["qty"][k], 2), dec(acc["price"][k], 2),
+        rf, ls = LINEITEM_DICTS[5][k // 2], LINEITEM_DICTS[6][k % 2]
+        out["q1"].append((
+            rf, ls, dec(acc["qty"][k], 2), dec(acc["price"][k], 2),
             dec(acc["disc_price"][k], 4), dec(acc["charge"][k], 6),
             avg6(acc["qty"][k], c), avg6(acc["price"][k], c),
             avg6(acc["disc"][k], c), c,
         ))
-    return q1, [(dec(q6, 4) if q6_rows else None,)]
+        out["ck1"].append((
+            rf.lower(), ls, dec(acc["qty"][k], 2),
+            dec(acc["disc_price"][k], 4), avg6(acc["disc"][k], c), c))
+    out["q6"] = [(dec(q6, 4) if q6_rows else None,)]
+    out["ck2"] = [(ord(LINEITEM_DICTS[6][j]), c, dec(sm, 4))
+                  for j, (c, sm) in ck2.items() if c]
+    out["sa"] = [(int(k), dec(int(sa_qty[k]), 2), int(sa_cnt[k]))
+                 for k in np.flatnonzero(sa_cnt)]
+    tn.sort(key=lambda t: (-t[0], t[1]))
+    out["tn"] = [(o, dec(p, 2)) for p, o in tn[:10]]
+    return out
+
+
+def q18_reference(n: int) -> dict:
+    """q18i and q18p rows with numpy over `lineitem_chunks(n)`: per
+    orderkey l_quantity sums (scale 2, exact: far below 2**53), kept
+    where the sum exceeds 300."""
+    import numpy as np
+
+    from tidb_tpu_torch.tpch_data import lineitem_chunks
+    from tidb_tpu_torch.types.values import parse_date
+
+    cut = parse_date("1998-09-02")
+    size = n // 4 + 2
+    all_qty = np.zeros(size, np.int64)
+    cut_qty = np.zeros(size, np.int64)
+    for (ok, qty, _p, _d, _t, _rf, _ls, ship) in lineitem_chunks(n, SEED):
+        all_qty += np.bincount(ok, weights=qty,
+                               minlength=size).astype(np.int64)
+        m = ship <= cut
+        cut_qty += np.bincount(ok[m], weights=qty[m],
+                               minlength=size).astype(np.int64)
+    return {name: [(int(k), dec(int(q[k]), 2))
+                   for k in np.flatnonzero(q > 30000)]
+            for name, q in (("q18i", all_qty), ("q18p", cut_qty))}
 
 
 # ---------------------------------------------------------------------------
@@ -253,14 +465,26 @@ def engines(sess, sql):
     return [r[4] for r in rows if "TableReader" in r[0]]
 
 
-def run_queries(sess, label: str, n_rows: int, reps: int = 5):
-    """Q1 and Q6 on the device engine: first latency, the median of
-    `reps` steady runs, rows/s; every run's rows must agree."""
-    from tidb_tpu_torch.tpch_data import LINEITEM_Q1, LINEITEM_Q6
+def _kernel_counts():
+    """The kernels' own wrappers, which hold the launch counts (the
+    recorders below stand in front of them)."""
+    from tidb_tpu_torch.copr.cuda.remap import remap_codes
+    from tidb_tpu_torch.copr.cuda.unpack import unpack_codes
 
+    return remap_codes, unpack_codes
+
+
+def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
+    """Each (name, sql) on the device engine: first latency, the median
+    of `reps` steady runs, rows/s; every run's rows must agree (in order
+    where the query orders them) and the scan must report
+    `engine:mesh`.  K1's and K2's launch counts are set
+    to 0 just before each query's runs and read just after."""
+    k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
-    for name, sql in (("q1", LINEITEM_Q1), ("q6", LINEITEM_Q6)):
+    for name, sql in queries:
+        k1.launches = k2.launches = 0
         t0 = time.perf_counter()
         rows = sess.query(sql)
         first = time.perf_counter() - t0
@@ -269,32 +493,100 @@ def run_queries(sess, label: str, n_rows: int, reps: int = 5):
             t0 = time.perf_counter()
             again = sess.query(sql)
             steady.append(time.perf_counter() - t0)
-            if again != rows:
+            if not same_rows(again, rows, name in ORDERED):
                 raise AssertionError(f"{label} {name}: rows changed "
                                      "between runs")
         eng = engines(sess, sql)
+        launches = {"remap_codes": k1.launches,
+                    "unpack_codes": k2.launches}
         if not eng or not all("engine:mesh" in e for e in eng):
             raise AssertionError(f"{label} {name}: not on the device "
                                  f"path: {eng}")
         med = statistics.median(steady)
         out[name] = {"rows": rows, "first_s": first, "steady_s": med,
-                     "steady_all_s": steady, "rows_per_s": n_rows / med}
+                     "steady_all_s": steady, "rows_per_s": n_rows / med,
+                     "launches": launches}
         log(f"{label} {name}: first {first * 1e3:.1f} ms, steady median "
             f"{med * 1e3:.1f} ms over {reps} runs, "
-            f"{n_rows / med:.4g} rows/s")
+            f"{n_rows / med:.4g} rows/s; launches K1 "
+            f"{launches['remap_codes']}, K2 {launches['unpack_codes']}")
     return out
 
 
-def profile_queries(sess, label: str):
-    """One steady run of Q1 and Q6 under torch.profiler, printed: wall
-    time, the summed device time of the kernels, the device's idle
+#: cells whose SQL orders its rows (the others compare as multisets)
+ORDERED = ("q1", "tn")
+
+
+def same_rows(got, want, ordered: bool) -> bool:
+    if ordered:
+        return got == want
+    return sorted(got, key=str) == sorted(want, key=str)
+
+
+def check_rows(label: str, res: dict, want: dict):
+    for name, r in res.items():
+        if not same_rows(r["rows"], want[name], name in ORDERED):
+            raise AssertionError(f"{label} {name}: rows != numpy "
+                                 f"reference:\n{r['rows'][:20]}\n"
+                                 f"{want[name][:20]}")
+    log(f"{label}: {', '.join(res)} rows == numpy reference")
+
+
+def q18_cells(sess, n_rows: int, want: dict) -> dict:
+    """q18i and q18p at SF1: each blows the sort-mode budget.  The first
+    run returns the rows (checked against numpy); the second, EXPLAIN
+    ANALYZE, is timed as the steady run and names the route.  q18p must
+    take the peel rung (mesh_agg_peel_total +1 a run, the scan on the
+    mesh); q18i, whose device head would be a bare scan, leaves the
+    fused program for the per-region rung."""
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    k1, k2 = _kernel_counts()
+    sess.execute("set tidb_use_tpu = 1")
+    out = {}
+    for name, sql, route in (("q18i", Q18I, "engine:tile-fanout"),
+                             ("q18p", Q18P, "engine:mesh")):
+        k1.launches = k2.launches = 0
+        snap = REGISTRY.snapshot()
+        peel0 = snap.get("mesh_agg_peel_total", 0)
+        scans0 = snap.get("mesh_scans_total", 0)
+        t0 = time.perf_counter()
+        rows = sess.query(sql)
+        first = time.perf_counter() - t0
+        snap = REGISTRY.snapshot()
+        peels = snap.get("mesh_agg_peel_total", 0) - peel0
+        scans = snap.get("mesh_scans_total", 0) - scans0
+        t0 = time.perf_counter()
+        eng = engines(sess, sql)
+        steady = time.perf_counter() - t0
+        if not same_rows(rows, want[name], ordered=False):
+            raise AssertionError(f"{name}: rows != numpy reference")
+        if not eng or not all(route in e for e in eng):
+            raise AssertionError(f"{name}: route {eng}, want {route}")
+        if scans < 1:
+            raise AssertionError(f"{name}: the fused program never ran")
+        if peels != (1 if name == "q18p" else 0):
+            raise AssertionError(f"{name}: {peels} agg peels")
+        out[name] = {"rows": len(rows), "first_s": first,
+                     "steady_s": steady, "rows_per_s": n_rows / steady,
+                     "peels": peels, "route": route,
+                     "launches": {"remap_codes": k1.launches,
+                                  "unpack_codes": k2.launches}}
+        log(f"SF1 {name}: {len(rows)} rows == numpy reference; first "
+            f"{first * 1e3:.1f} ms, steady (EXPLAIN ANALYZE) "
+            f"{steady * 1e3:.1f} ms, {n_rows / steady:.4g} rows/s; "
+            f"route {route}, agg peels {peels}")
+    return out
+
+
+def profile_queries(sess, label: str, queries):
+    """One steady run of each (name, sql) under torch.profiler, printed:
+    wall time, the summed device time of the kernels, the device's idle
     share, and the operators that take the most device and host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tidb_tpu_torch.tpch_data import LINEITEM_Q1, LINEITEM_Q6
-
-    for name, sql in (("q1", LINEITEM_Q1), ("q6", LINEITEM_Q6)):
+    for name, sql in queries:
         sess.query(sql)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -392,6 +684,27 @@ def cold_cap(table) -> int:
     return cap
 
 
+def kernel_entry(name: str, launches: int, on_path: list) -> dict:
+    """One kernel's entry of the `kernels` line: the numbers measured on
+    the input the path launched most (the larger n on a tie)."""
+    from tidb_tpu_torch.copr.cuda import KERNELS
+
+    _fn, _plain, source, replaces = KERNELS[name]
+    k = max(on_path, key=lambda r: (r["calls"], r["n"]))
+    entry = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in on_path),
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "library_ms": k.get("library_ms"),
+        "n": k["n"],
+    }
+    for extra in ("bits", "code", "map", "cap"):
+        if extra in k:
+            entry[extra] = k[extra]
+    return entry
+
+
 def main(argv) -> int:
     import torch
 
@@ -401,10 +714,11 @@ def main(argv) -> int:
         return 2
     import tidb_tpu_torch  # noqa: F401  (fails outside a checkout)
     from tidb_tpu_torch import ops
-    from tidb_tpu_torch.copr.cuda import KERNELS, build_all, unpack_codes
+    from tidb_tpu_torch.copr.cuda import build_all
     from tidb_tpu_torch.layout import autotuner, set_hot_cap_bytes
     from tidb_tpu_torch.metrics import REGISTRY
-    from tidb_tpu_torch.tpch_data import build_lineitem
+    from tidb_tpu_torch.tpch_data import (LINEITEM_Q1, LINEITEM_Q6,
+                                          build_lineitem)
 
     t_start = time.perf_counter()
     card = card_line()
@@ -420,8 +734,13 @@ def main(argv) -> int:
         f"({', '.join(f'{k} {v:.1f} s' for k, v in build_secs.items())})")
 
     kernel_phase()
+    k1_phase()
 
     sf1 = sf1_host_check()
+    t0 = time.perf_counter()
+    want18 = q18_reference(SF1_ROWS)
+    log(f"SF1 numpy reference: {time.perf_counter() - t0:.1f} s")
+    q18 = q18_cells(sf1, SF1_ROWS, want18)
     del sf1
     gc.collect()
     reset_device_state()
@@ -435,23 +754,30 @@ def main(argv) -> int:
         "test", "lineitem").id)
 
     t0 = time.perf_counter()
-    want_q1, want_q6 = numpy_reference(SF10_ROWS)
+    want = numpy_reference(SF10_ROWS)
     log(f"numpy reference: {time.perf_counter() - t0:.1f} s")
+
+    both = [("q1", LINEITEM_Q1), ("q6", LINEITEM_Q6), ("ck1", CK1),
+            ("ck2", CK2)]
+    hot_only = [("sa", SA), ("tn", TN)]
 
     # hot deployment: every column resident, no unpack launch
     fail0 = failure_counters()
-    unpack_codes.launches = 0
-    hot = run_queries(sess, "hot", SF10_ROWS)
-    hot_launches = unpack_codes.launches
-    if hot_launches != 0:
-        raise AssertionError(f"hot: {hot_launches} unpack launches")
-    if hot["q1"]["rows"] != want_q1 or hot["q6"]["rows"] != want_q6:
-        raise AssertionError(f"hot rows != numpy reference:\n"
-                             f"{hot['q1']['rows']}\n{want_q1}\n"
-                             f"{hot['q6']['rows']} {want_q6}")
-    log("hot: Q1 and Q6 rows == numpy reference")
+    seen_k1, restore_k1 = record_remap_inputs()
+    try:
+        hot = run_queries(sess, "hot", SF10_ROWS, both + hot_only)
+    finally:
+        restore_k1()
+    check_rows("hot", hot, want)
+    for name, r in hot.items():
+        if r["launches"]["unpack_codes"] != 0:
+            raise AssertionError(f"hot {name}: unpack launches "
+                                 f"{r['launches']}")
+        if (r["launches"]["remap_codes"] > 0) != (name in ("ck1", "ck2")):
+            raise AssertionError(f"hot {name}: remap launches "
+                                 f"{r['launches']}")
     if profiling:
-        profile_queries(sess, "hot")
+        profile_queries(sess, "hot", both + hot_only)
 
     # cold deployment: the packable columns bit-packed on the card
     reset_device_state()
@@ -461,12 +787,12 @@ def main(argv) -> int:
         f"{autotuner._table_wire_bytes(table)})")
     hits0 = REGISTRY.snapshot().get("layout_cold_hits_total", 0)
     seen, restore = record_unpack_inputs()
-    unpack_codes.launches = 0
+    seen_k1_cold, restore_k1 = record_remap_inputs()
     try:
-        cold = run_queries(sess, "cold", SF10_ROWS)
+        cold = run_queries(sess, "cold", SF10_ROWS, both)
     finally:
         restore()
-    cold_launches = unpack_codes.launches
+        restore_k1()
     hits1 = REGISTRY.snapshot().get("layout_cold_hits_total", 0)
     for r in sess.query(
             "select column_name, encoding, packed_bits, tier, tile_bucket"
@@ -478,34 +804,38 @@ def main(argv) -> int:
     if not cold_cols >= {"l_returnflag", "l_linestatus", "l_discount",
                          "l_tax"}:
         raise AssertionError(f"cold: cold columns {cold_cols}")
-    if cold["q1"]["rows"] != hot["q1"]["rows"] \
-            or cold["q6"]["rows"] != hot["q6"]["rows"]:
-        raise AssertionError("cold rows != hot rows")
-    if cold_launches <= 0:
-        raise AssertionError("cold: the unpack kernel never launched")
+    check_rows("cold", cold, want)
+    for name, r in cold.items():
+        if r["launches"]["unpack_codes"] <= 0:
+            raise AssertionError(f"cold {name}: the unpack kernel never "
+                                 "launched")
+        if (r["launches"]["remap_codes"] > 0) != (name in ("ck1", "ck2")):
+            raise AssertionError(f"cold {name}: remap launches "
+                                 f"{r['launches']}")
     if hits1 <= hits0:
         raise AssertionError("cold: no cold-tier hit")
     fail1 = failure_counters()
     if fail1 != fail0:
         raise AssertionError(f"fallback counters moved: {fail0} -> {fail1}")
-    log(f"cold: rows == hot rows; unpack launches {cold_launches}; cold "
-        f"hits {hits1 - hits0}; fallback counters unchanged {fail1}")
-    on_path = path_kernel_phase(seen)
+    log(f"cold: rows == hot rows == numpy reference; cold hits "
+        f"{hits1 - hits0}; fallback counters unchanged {fail1}")
     if profiling:
-        profile_queries(sess, "cold")
+        profile_queries(sess, "cold", both)
+    on_path_k2 = path_kernel_phase(seen)
+    for key, rec in seen_k1_cold.items():
+        if key in seen_k1:
+            seen_k1[key][0] += rec[0]
+        else:
+            seen_k1[key] = rec
+    on_path_k1 = path_k1_phase(seen_k1)
 
-    name = "unpack_codes"
-    _fn, _plain, source, replaces = KERNELS[name]
-    # the shape the path launched most (the larger n on a tie)
-    k = max(on_path, key=lambda r: (r["calls"], r["n"]))
-    kernels = {"kernels": [{
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": cold_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in on_path),
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
-        "bits": k["bits"], "n": k["n"],
-    }]}
+    cells = list(hot.values()) + list(cold.values()) + list(q18.values())
+    k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
+    k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
+    kernels = {"kernels": [
+        kernel_entry("remap_codes", k1_launches, on_path_k1),
+        kernel_entry("unpack_codes", k2_launches, on_path_k2),
+    ]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

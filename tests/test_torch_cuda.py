@@ -54,3 +54,49 @@ def test_unpack_codes_rejects_bad_length_on_card(card):
 
     with pytest.raises(ValueError):
         unpack_codes(torch.zeros(4, dtype=torch.uint8, device=card), 4, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("map_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("code_dtype", [torch.uint8, torch.int8, torch.int16,
+                                        torch.int32, torch.int64])
+def test_remap_codes_kernel_matches_plain(card, code_dtype, map_dtype):
+    """K1 on the card against its plain version: both kernel branches
+    (a mapping staged in shared memory, and one read through __ldg) and
+    codes outside [0, cap)."""
+    from tidb_tpu_torch.copr.cuda import remap_codes, remap_codes_plain
+
+    g = torch.Generator(device=card).manual_seed(5)
+    info = torch.iinfo(code_dtype)
+    for cap in (2, 4, 1 << 12, 1 << 16, 1 << 22):
+        for n in (8, (1 << 20) + 3):
+            lo = max(info.min, -7)
+            hi = min(info.max, cap + 40)
+            codes = torch.randint(lo, hi + 1, (n,), device=card,
+                                  generator=g).to(code_dtype)
+            mapping = torch.randint(-(1 << 31), 1 << 31, (cap,),
+                                    device=card, generator=g).to(map_dtype)
+            before = remap_codes.launches
+            got = remap_codes(codes, mapping, n)
+            torch.cuda.synchronize()
+            assert remap_codes.launches == before + 1
+            assert got.dtype == map_dtype
+            assert torch.equal(got, remap_codes_plain(codes, mapping, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descending", [True, False])
+def test_masked_top_k_orders_ties_by_row_on_card(card, descending):
+    from tidb_tpu_torch.ops import masked_top_k
+
+    g = torch.Generator(device=card).manual_seed(9)
+    n = 1 << 20
+    key = torch.randint(0, 50, (n,), device=card, generator=g).double()
+    mask = torch.rand(n, device=card, generator=g) > 0.3
+    for k in (1, 16, 1024):
+        idx, cnt = masked_top_k(key, mask, k, descending)
+        kf = key if descending else -key
+        kf = torch.where(mask, kf, torch.full_like(kf, float("-inf")))
+        want = torch.sort(kf, descending=True, stable=True).indices[:k]
+        assert int(cnt) == k
+        assert torch.equal(idx, want)

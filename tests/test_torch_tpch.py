@@ -1,4 +1,6 @@
-"""The slice as a whole: TPC-H Q1 and Q6 from SQL, hot and cold tier.
+"""The slices as a whole: TPC-H Q1 and Q6, and the sort-mode, computed
+key and TopN cells (`ck1`, `ck2`, `sa`, `tn`, `q18i`), from SQL, hot and
+cold tier.
 
 Both packages build the same lineitem (16,384 rows, 4 regions, seed 7:
 16 tiles under conftest's TIDB_TPU_TILE=1024) and run Q1 and Q6 with
@@ -8,12 +10,16 @@ columns (l_returnflag 2 bits, l_linestatus 1 bit, l_discount and l_tax 4
 bits) to the cold tier.  The port's rows must equal the JAX package's
 after `_norm` (ints and decimals exact, floats to 6 places), its scans
 must report `engine:mesh`, and the cold leg must serve cold hits through
-the plain unpack version (CPU tensors).
+the plain unpack version (CPU tensors).  The second slice's cells are
+held against the JAX package's host engine (`tidb_use_tpu = 0`, whose
+rows equal its device rungs'); in the cold leg their computed keys read
+K2's decoded codes through K1's plain version.
 """
 
 import os
 
 import pytest
+import torch
 
 from tidb_tpu_torch import ops as tops
 
@@ -29,6 +35,50 @@ def _queries():
     from tidb_tpu_torch.tpch_data import LINEITEM_Q1, LINEITEM_Q6
 
     return {"q1": LINEITEM_Q1, "q6": LINEITEM_Q6}
+
+
+#: the second slice's cells (chip_smoke.py runs them at SF10 / SF1)
+SLICE2 = {
+    "ck1": "select lower(l_returnflag), l_linestatus, sum(l_quantity),"
+           " sum(l_extendedprice * (1 - l_discount)), avg(l_discount),"
+           " count(*) from lineitem where l_shipdate <= '1998-09-02'"
+           " group by lower(l_returnflag), l_linestatus",
+    "ck2": "select ascii(l_linestatus), count(*),"
+           " sum(l_extendedprice * l_discount) from lineitem"
+           " where l_shipdate >= '1994-01-01' and l_shipdate < '1995-01-01'"
+           " group by ascii(l_linestatus)",
+    "sa": "select l_orderkey, sum(l_quantity), count(*) from lineitem"
+          " where l_orderkey <= 100000 group by l_orderkey",
+    "tn": "select l_orderkey, l_extendedprice from lineitem"
+          " where l_shipdate >= '1995-03-15'"
+          " order by l_extendedprice desc, l_orderkey limit 10",
+    "q18i": "select l_orderkey, sum(l_quantity) from lineitem"
+            " group by l_orderkey having sum(l_quantity) > 300",
+}
+
+
+def _sorted(rows):
+    return sorted(_norm(rows), key=lambda r: tuple(map(str, r)))
+
+
+def _slice2_parity(env, name):
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    sql = SLICE2[name]
+    js = env["j"]
+    js.execute("set tidb_use_tpu = 0")
+    try:
+        want = js.query(sql)
+    finally:
+        js.execute("set tidb_use_tpu = 1")
+    s0 = REGISTRY.get("fusion_splits_total")
+    got = env["t"].query(sql)
+    assert REGISTRY.get("fusion_splits_total") == s0
+    assert got and _sorted(got) == _sorted(want)
+    if name == "tn":
+        assert _norm(got) == _norm(want)  # ORDER BY: the order too
+    engines = _explain_engines(env["t"], sql)
+    assert engines and all("engine:mesh" in e for e in engines), engines
 
 
 def _cold_cap(pkg_layout, table) -> int:
@@ -115,6 +165,11 @@ def test_hot_rows_match_reference(env, name):
     assert engines and all("engine:mesh" in e for e in engines), engines
 
 
+@pytest.mark.parametrize("name", sorted(SLICE2))
+def test_slice2_hot_rows_match_reference(env, name):
+    _slice2_parity(env, name)
+
+
 @pytest.mark.parametrize("name", Q_NAMES)
 def test_cold_rows_match_reference(env, name, monkeypatch):
     from tidb_tpu_torch.copr.cuda import unpack as tunpack
@@ -155,6 +210,31 @@ def test_cold_rows_match_reference(env, name, monkeypatch):
         else cold >= {"l_discount"}
     engines = _explain_engines(env["t"], sql)
     assert engines and all("engine:mesh" in e for e in engines), engines
+
+
+@pytest.mark.parametrize("name", sorted(SLICE2))
+def test_slice2_cold_rows_match_reference(env, name, monkeypatch):
+    """Cold cap on (set by the cold Q1/Q6 tests above, re-set here):
+    computed keys remap the codes K2 unpacked."""
+    from tidb_tpu_torch.copr.cuda import remap as tremap
+
+    tlayout = env["tlayout"]
+    tlayout.set_hot_cap_bytes(_cold_cap(tlayout, _lineitem(env["t"])))
+    seen = []
+    real = tremap.remap_codes_plain
+
+    def spy(codes, mapping, n):
+        seen.append((codes.dtype, mapping.dtype))
+        return real(codes, mapping, n)
+
+    monkeypatch.setattr(tremap, "remap_codes_plain", spy)
+    _slice2_parity(env, name)
+    if name in ("ck1", "ck2"):
+        # the cold decode hands K1 int32 codes: l_returnflag with an
+        # int32 map (a STRING key), l_linestatus with an int64 map (an
+        # INT key)
+        want_map = torch.int32 if name == "ck1" else torch.int64
+        assert seen and set(seen) == {(torch.int32, want_map)}
 
 
 def _arm_unpack(monkeypatch, env, exc):

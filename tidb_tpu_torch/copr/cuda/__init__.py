@@ -10,10 +10,16 @@ the same function that the wrapper takes for CPU tensors.
 """
 
 from .build import build_all, sources  # noqa: F401
+from .remap import remap_codes, remap_codes_plain  # noqa: F401
 from .unpack import unpack_codes, unpack_codes_plain  # noqa: F401
 
 #: name -> (wrapper, plain version, CUDA source, TPU kernel it replaces)
 KERNELS = {
+    "remap_codes": (
+        remap_codes, remap_codes_plain,
+        "tidb_tpu_torch/copr/cuda/csrc/remap_codes.cu",
+        "tidb_tpu/copr/pallas/kernels.py:81",
+    ),
     "unpack_codes": (
         unpack_codes, unpack_codes_plain,
         "tidb_tpu_torch/copr/cuda/csrc/unpack_codes.cu",

@@ -7,14 +7,22 @@ fragments onto single tensor programs.  This module is that idea for
 the torch engine:
 
 - **Phase emitters** (`selection_mask`, `dense_group_codes`,
-  `dense_agg_results`, `projection_outputs`): each pushed phase of a
-  fragment — filter, project, group-code, aggregate — emits torch ops
-  over a shared context (`RegionContext`) instead of owning its own
-  dispatch.  The whole-table program (`parallel._build_mesh_core`)
-  composes them, so scan→filter→project→agg runs as one sequence of
-  device ops whose intermediates never leave the card.  With one card
-  the cross-shard merge of the JAX package's mesh (psum) is the
-  identity.
+  `dense_agg_results`, `topn_key`, `projection_outputs`, and the
+  sort-group pair `sort_group_segments` / `grouped_partial_states`):
+  each pushed phase of a fragment — filter, project, group-code,
+  aggregate, topN — emits torch ops over a shared context
+  (`RegionContext`) instead of owning its own dispatch.  The
+  whole-table program (`parallel._build_mesh_core`) composes them, so
+  scan→filter→project→agg→topN runs as one sequence of device ops whose
+  intermediates never leave the card.  With one card the cross-shard
+  merge of the JAX package's mesh (psum) is the identity.
+
+- **Computed keys and dictionary predicates** (`build_key_remap`,
+  `dict_pred_codes`): a function of one dictionary-encoded string
+  column is evaluated on the host once per DICTIONARY entry, never per
+  row; rows then regather their codes through the result on the card
+  (`remap_codes`, the hand-written CUDA kernel K1) or test code-set
+  membership.
 
 - **Fusion regions + fallback ladder** (`plan_regions`): a fragment
   containing one unfusable operator does not demote the WHOLE fragment
@@ -31,10 +39,13 @@ the torch engine:
 
 from __future__ import annotations
 
+import json
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from .. import ops
@@ -177,9 +188,273 @@ def dense_agg_results(ctx: RegionContext, gidx):
     return gcount, results
 
 
+def topn_key(ctx: RegionContext):
+    """The TopN sort key with MySQL NULL ordering: first ascending, last
+    descending.  The sentinel stays distinguishable from masked-out rows
+    (masked_top_k uses -inf for those), so NULLs get a finite extreme:
+    -MAX asc (sorts first), -MAX desc (sorts last but still beats masked
+    rows).
+
+    Multi-column orderings with a packed compound spec (`an.topn_pack`)
+    emit ONE lexicographically exact integer key instead (see
+    `compound_topn_key`).  Callers sort the packed key ASCENDING."""
+    if ctx.an.topn_pack is not None:
+        return compound_topn_key(ctx)
+    key_expr, _desc = ctx.an.topn.order_by[0]
+    d, v = compile_expr(key_expr, ctx.cols, ctx.n)
+    key = d.to(torch.float64)
+    return torch.where(v, key, torch.full_like(key, -1.7e308))
+
+
+def compound_topn_key(ctx: RegionContext):
+    """The packed lexicographic key over `an.topn_pack` specs: per key
+    (col_idx, lo, hi, slots, desc, has_null), rank ascending-first-wins,
+    strides most-significant-first; the product of slots is capped at
+    2**52 by the analyzer so the f64 comparison stays exact."""
+    key = torch.zeros(ctx.n, dtype=torch.int64, device=ctx.mask.device)
+    for col_idx, lo, hi, slots, desc, has_null in ctx.an.topn_pack:
+        d, v = ctx.cols[col_idx]
+        d = d.to(torch.int64)
+        if desc:
+            # largest value first; NULLs last (MySQL desc ordering)
+            rank = torch.clamp(hi - d, 0, slots - 1)
+            if has_null:
+                rank = torch.where(v, rank, torch.full_like(rank, slots - 1))
+        else:
+            # NULLs first ascending: slot 0 reserved when nullable
+            if has_null:
+                rank = torch.where(v, torch.clamp(d - lo, 0, slots - 2) + 1,
+                                   torch.zeros_like(d))
+            else:
+                rank = torch.clamp(d - lo, 0, slots - 1)
+        key = key * slots + rank
+    return key.to(torch.float64)
+
+
 def projection_outputs(ctx: RegionContext):
     """The fused projection expressions (device-evaluated outputs)."""
     return [compile_expr(p, ctx.cols, ctx.n) for p in ctx.an.proj_exprs]
+
+
+def topn_desc(an) -> bool:
+    """The descending flag of the device top-k: packed compound keys
+    already fold each key's direction into the rank, so they always sort
+    ASCENDING; single keys keep their own flag."""
+    if an.topn_pack is not None:
+        return False
+    return an.topn.order_by[0][1]
+
+
+# ---------------------------------------------------------------------------
+# computed string group keys: device-side dictionary-code re-mapping
+# ---------------------------------------------------------------------------
+
+
+class KeyRemap:
+    """One computed group key lowered to a code-space gather.
+
+    `mapping` (pow2-padded to `cap`) rides as a RUNTIME operand of the
+    fused program: row code -> computed-key output.  STRING keys map
+    code -> output-dictionary code (int32) and `out_dict` (sorted so
+    code order == string order) decodes the compacted group keys
+    host-side after readback; INT-valued computed keys (LENGTH/ASCII)
+    map code -> the computed VALUE directly (int64, `out_dict` None).
+    `on_device` uploads the mapping once per device; the remap itself is
+    cached per base version, so a mapping crosses the link once per
+    base version, not once per query."""
+
+    __slots__ = ("src_idx", "mapping", "cap", "out_dict", "_dev")
+
+    def __init__(self, src_idx: int, mapping: np.ndarray, cap: int,
+                 out_dict: Optional[List[str]]):
+        self.src_idx = src_idx
+        self.mapping = mapping
+        self.cap = cap
+        self.out_dict = out_dict
+        self._dev = {}
+
+    def on_device(self, dev: torch.device) -> torch.Tensor:
+        t = self._dev.get(dev)
+        if t is None:
+            from .parallel import to_device
+
+            t = self._dev.setdefault(dev, to_device(self.mapping, dev))
+        return t
+
+
+def _single_dict_column(expr, scan, table, cols=None):
+    """The ONE dict-encoded string column a remappable expression reads,
+    or None.  The structural walk is the SHARED
+    `pushdown.dict_computable_columns` /
+    `pushdown._computed_dict_tree_columns` (one source of truth with the
+    planner gate and plancheck); this adds the engine-side identity
+    check: a single scan index whose store column is dict-encoded."""
+    from ..expr.pushdown import (_computed_dict_tree_columns,
+                                 dict_computable_columns)
+
+    if cols is None:
+        cols = dict_computable_columns(expr)
+        if cols is None:
+            cols = _computed_dict_tree_columns(expr)
+    if cols is None:
+        return None
+    idxs = {c.index for c in cols}
+    if len(idxs) != 1:
+        return None
+    idx = next(iter(idxs))
+    if not (0 <= idx < len(scan.columns)):
+        return None  # join payload column: no store dictionary
+    store_ci = scan.columns[idx]
+    if store_ci not in table.dict_encoded_cols():
+        return None
+    return idx
+
+
+_REMAP_MU = threading.Lock()
+#: (store_uid, base_version, expr json) -> KeyRemap (or a predicate's
+#: code set); the host pays the per-dictionary evaluation ONCE per base
+#: version, not once per query.  Bounded: superseded base versions purge
+#: per store, and the whole map caps at _REMAP_CACHE_MAX entries (FIFO).
+_REMAP_CACHE: dict = {}
+_REMAP_CACHE_MAX = 256
+
+
+def _remap_cache_key(table, expr, prefix: str = ""):
+    from .ir import serialize_expr
+
+    return (table.store_uid, table.base_version,
+            prefix + json.dumps(serialize_expr(expr), sort_keys=True))
+
+
+def _remap_cache_put(ck, value):
+    with _REMAP_MU:
+        while len(_REMAP_CACHE) >= _REMAP_CACHE_MAX:
+            _REMAP_CACHE.pop(next(iter(_REMAP_CACHE)))  # FIFO victim
+        _REMAP_CACHE[ck] = value
+
+
+def build_key_remap(table, scan, expr) -> KeyRemap:
+    """Lower a computed group key over a dict-encoded column to a
+    code-space re-mapping: evaluate the expression once per DICTIONARY
+    entry on the host (|dict| rows, not |table| rows), sort-unique the
+    outputs into a new dictionary, and hand the code->code mapping to
+    the device as a runtime gather operand.  Raises DeviceUnsupported
+    with a 'computed group key' message (the computed-key split reason)
+    when the expression is not remappable."""
+    ck = _remap_cache_key(table, expr)
+    with _REMAP_MU:
+        hit = _REMAP_CACHE.get(ck)
+        if hit is not None:
+            return hit
+        # drop remaps of superseded base versions for this store
+        for k in [k for k in _REMAP_CACHE
+                  if k[0] == ck[0] and k[1] != ck[1]]:
+            del _REMAP_CACHE[k]
+    rm = _build_key_remap_uncached(table, scan, expr)
+    _remap_cache_put(ck, rm)
+    return rm
+
+
+def _eval_over_dictionary(table, scan, expr, idx):
+    """Evaluate `expr` once per DICTIONARY entry of scan column `idx`
+    (the shared recipe of the key-remap and predicate-code lowerings):
+    a chunk wide enough for the source index, every other slot a zero
+    placeholder — only the source column is ever read (checked by
+    _single_dict_column)."""
+    from ..chunk import Chunk, Column
+    from ..types import ty_string
+
+    store_ci = scan.columns[idx]
+    dictionary = table.cols[store_ci].dictionary or []
+    if not dictionary:
+        raise DeviceUnsupported("computed dict expression over empty "
+                                "dictionary")
+    nd = len(dictionary)
+    vals = np.empty(nd, dtype=object)
+    vals[:] = [str(s) for s in dictionary]
+    cols = []
+    for j in range(idx + 1):
+        if j == idx:
+            cols.append(Column(ty_string(False), vals))
+        else:
+            cols.append(Column(scan.ftypes[j],
+                               np.zeros(nd, dtype=np.int64)))
+    return expr.eval(Chunk(cols)), nd
+
+
+def _build_key_remap_uncached(table, scan, expr) -> KeyRemap:
+    from ..types import TypeKind
+
+    if expr.ftype.kind not in (TypeKind.STRING, TypeKind.INT,
+                               TypeKind.UINT):
+        raise DeviceUnsupported(
+            f"computed group key not dict-remappable: {expr}")
+    idx = _single_dict_column(expr, scan, table)
+    if idx is None:
+        raise DeviceUnsupported(
+            f"computed string group key not dict-remappable: {expr}")
+    out, nd = _eval_over_dictionary(table, scan, expr, idx)
+    if not np.all(out.validity()):
+        raise DeviceUnsupported(
+            f"computed group key maps entries to NULL: {expr}")
+    cap = 2
+    while cap < nd:
+        cap <<= 1
+    if expr.ftype.kind != TypeKind.STRING:
+        # INT-valued computed key (LENGTH/ASCII): the mapping carries
+        # the computed VALUE per code — no output dictionary, the key
+        # bits ARE the values
+        mapping = np.zeros(cap, dtype=np.int64)
+        mapping[:nd] = [int(x) for x in out.data]
+        return KeyRemap(idx, mapping, cap, None)
+    outs = [str(x) for x in out.data]
+    out_dict = sorted(set(outs))
+    rank = {s: i for i, s in enumerate(out_dict)}
+    mapping = np.zeros(cap, dtype=np.int32)
+    mapping[:nd] = [rank[s] for s in outs]
+    return KeyRemap(idx, mapping, cap, out_dict)
+
+
+def dict_pred_codes(table, scan, expr):
+    """Lower a computed predicate over ONE dict-encoded column to its
+    matching CODE SET (LIKE / SUBSTR / LENGTH predicates): evaluate the
+    whole predicate once per dictionary entry on the host (NULL -> no
+    match, SQL filter semantics) and return (src_idx, sorted matching
+    codes ndarray, dictionary size).  Raises DeviceUnsupported when not
+    lowerable.  Cached per (store, base_version, expr) alongside the key
+    remaps."""
+    from ..expr.pushdown import dict_pred_source
+
+    cols = dict_pred_source(expr)
+    idx = (_single_dict_column(expr, scan, table, cols=cols)
+           if cols is not None else None)
+    if idx is None:
+        raise DeviceUnsupported(
+            f"predicate not dict-code-loweable: {expr}")
+    ck = _remap_cache_key(table, expr, prefix="pred:")
+    with _REMAP_MU:
+        hit = _REMAP_CACHE.get(ck)
+    if hit is not None:
+        return hit
+    out, nd = _eval_over_dictionary(table, scan, expr, idx)
+    truth = np.zeros(nd, dtype=np.bool_)
+    valid = out.validity()
+    for i, v in enumerate(out.data):
+        if valid[i] and v:
+            truth[i] = True  # NULL predicate results drop the row
+    res = (idx, np.flatnonzero(truth).astype(np.int64), nd)
+    _remap_cache_put(ck, res)
+    return res
+
+
+def remap_codes(codes, mapping, n: int):
+    """Code-space gather emitter: dictionary codes -> computed-key
+    values through a runtime mapping operand, with the hand-written CUDA
+    kernel K1 (`copr.cuda.remap_codes`; its plain torch version on CPU
+    tensors)."""
+    from .cuda import remap_codes as k1
+
+    return k1(codes.reshape(n), mapping, n)
 
 
 def decode_packed(packed, dict_arg, bits: int, n: int,
@@ -198,6 +473,136 @@ def decode_packed(packed, dict_arg, bits: int, n: int,
     if kind == "range":
         return code.to(dict_arg.dtype) + dict_arg
     return dict_arg[code.to(torch.int64)]
+
+
+# ---------------------------------------------------------------------------
+# grouped sort-agg emitters (parallel._build_sort_agg_core)
+# ---------------------------------------------------------------------------
+
+
+def _lexsort(keys):
+    """The permutation `jnp.lexsort(keys)` gives: the LAST key is
+    primary, ties keep their row order.  torch has no lexsort, so it
+    chains stable sorts from the least significant key up."""
+    order = None
+    for k in keys:
+        kk = k if order is None else k[order]
+        idx = torch.sort(kk, stable=True).indices
+        order = idx if order is None else order[idx]
+    return order
+
+
+def sort_group_segments(key_bits, key_flags, mask, cap):
+    """Sort-based grouping into a static `cap`-slot budget.
+
+    Sorts rows by (key bits..., null flags..., selected-first) as
+    `jnp.lexsort` orders them (the last key primary), marks group
+    boundaries, and clips segment ids to [0, cap).  The 0/1 keys (the
+    null flags and the unselected flag) pack into ONE int64 whose
+    numeric order is their lexicographic order, so the sort costs one
+    stable pass per key plus one.
+
+    Returns (order, sm, skeys, seg, pos, n_uniq): the sort permutation,
+    sorted selection mask, sorted key arrays, per-row segment ids, the
+    first-row-per-group positions (padded with n-1 to `cap`), and the
+    TRUE distinct-group count — n_uniq > cap means the budget blew and
+    slots past cap-1 hold merged garbage; the caller must treat the
+    result as overflowed.  Finding the positions (`torch.nonzero`)
+    waits for the card once."""
+    n = mask.shape[0]
+    dev = mask.device
+    flags = (~mask).to(torch.int64)
+    for f in reversed(key_flags):
+        flags = flags * 2 + f
+    order = _lexsort(list(key_bits) + [flags])
+    sm = mask[order]
+    skeys = [k[order] for k in list(key_bits) + list(key_flags)]
+    diff = torch.zeros(n, dtype=torch.bool, device=dev)
+    diff[:1] = True
+    for k in skeys:
+        diff[1:] |= k[1:] != k[:-1]
+    boundary = sm & diff
+    n_uniq = boundary.sum()
+    seg = torch.clamp(torch.cumsum(boundary, 0) - 1, 0, cap - 1)
+    first = torch.nonzero(boundary).reshape(-1)[:cap]
+    pos = torch.full((cap,), n - 1, dtype=torch.int64, device=dev)
+    pos[:first.shape[0]] = first
+    return order, sm, skeys, seg, pos, n_uniq
+
+
+def _segment_spans(seg, cap):
+    """[lo, hi) row spans of slots 0..cap-1 over sort-grouped rows, whose
+    segment ids never decrease (unselected rows sit last, in the last
+    live slot, and overflowing groups share slot cap-1); an empty slot
+    has lo == hi."""
+    g = torch.arange(cap, dtype=seg.dtype, device=seg.device)
+    return (torch.searchsorted(seg, g),
+            torch.searchsorted(seg, g, right=True))
+
+
+def _sorted_segment_sum(x, spans):
+    """Per-slot sums of int64 `x` (zero where a row does not count) over
+    the contiguous spans: a prefix sum and two gathers."""
+    lo, hi = spans
+    pre = torch.zeros(x.shape[0] + 1, dtype=torch.int64, device=x.device)
+    torch.cumsum(x, 0, out=pre[1:])
+    return pre[hi] - pre[lo]
+
+
+def grouped_partial_states(aggs, arg_fn, order, sm, seg, cap,
+                           sgofs=None, n_global=0):
+    """Segment-reduce per-group partial states for every aggregate over
+    sort-grouped rows (the layouts `_agg_tags` names: count -> [cap],
+    sum/avg/min/max -> ([cap], [cap]) value+count, first_row -> [cap]
+    global row indices when `sgofs` is given).
+
+    `arg_fn(expr)` evaluates an aggregate argument in the UNSORTED row
+    layout; this emitter applies the sort permutation.
+
+    Counts and integer sums (decimal states are scaled int64) reduce the
+    sorted, contiguous segments with a prefix sum: exact in any order,
+    deterministic, and free of the atomics that a scatter into a few hot
+    slots serializes on.  Float sums keep the scatter-add
+    (`ops.masked_segment_sum`): a prefix-sum difference would round
+    differently from a direct sum."""
+    from .torch_engine import _to_state_dtype
+
+    spans = _segment_spans(seg, cap)
+
+    def count(m):
+        return _sorted_segment_sum(m.to(torch.int64), spans)
+
+    results = []
+    for a in aggs:
+        if a.name == "count":
+            if a.args:
+                _d, v = arg_fn(a.args[0])
+                results.append(count(sm & v[order]))
+            else:
+                results.append(count(sm))
+            continue
+        d, v = arg_fn(a.args[0])
+        d, mv = d[order], sm & v[order]
+        if a.name in ("sum", "avg"):
+            st = a.partial_types()[0]
+            dd = _to_state_dtype(d, a.args[0].ftype, st)
+            if dd.dtype == torch.int64:
+                total = _sorted_segment_sum(
+                    torch.where(mv, dd, torch.zeros_like(dd)), spans)
+            else:
+                total = ops.masked_segment_sum(dd, seg, mv, cap)
+            results.append((total, count(mv)))
+        elif a.name == "min":
+            results.append((
+                ops.masked_segment_min(d, seg, mv, cap), count(mv)))
+        elif a.name == "max":
+            results.append((
+                ops.masked_segment_max(d, seg, mv, cap), count(mv)))
+        elif a.name == "first_row":
+            contrib = torch.where(mv, sgofs,
+                                  torch.full_like(sgofs, n_global))
+            results.append(ops.segment_min(contrib, seg, cap))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +630,8 @@ def plan_regions(dag: DAG, table, max_cut: Optional[int] = None
     fragments outright.
 
     A region whose head ends in a device PROJECTION may still carry a
-    host tail (the tail reads the projected layout).  Partial-agg heads
-    refuse tails: a Limit over whole-table partials would drop groups,
+    host tail (the tail reads the projected layout).  Partial-agg and
+    topN heads refuse tails: a Limit over whole-table partials would drop groups,
     so those peel to the deepest safe boundary and the split is labelled
     'head-shape'."""
     from .torch_engine import _Analyzed
@@ -249,7 +654,10 @@ def plan_regions(dag: DAG, table, max_cut: Optional[int] = None
             if reason is None:
                 reason = str(e)
             continue
-        if tail and an.agg is not None:
+        if tail and (an.agg is not None or an.topn is not None):
+            # partial agg / topn outputs must not feed tail executors (a
+            # Limit over whole-table partials would drop groups) — keep
+            # peeling; projection heads ARE hybrid-eligible
             if guard_cut is None:
                 guard_cut = cut
             continue

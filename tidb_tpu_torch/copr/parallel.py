@@ -11,15 +11,22 @@ executor/aggregate.go:101-169 the partial/final agg split).  Here:
 - The whole scan is one sequence of torch ops (`_build_mesh_core`):
   widen, mask, filter and partially aggregate every row, so a
   steady-state aggregation moves only G-sized results to the host.
+- Aggregation over arbitrary keys (high NDV, float, NULLable or
+  computed keys) groups by sorting (`_build_sort_agg_core`) into a
+  static budget of OUT groups per dispatch; a blown budget re-runs the
+  fragment with the aggregation peeled to a host tail
+  (`_peel_agg_rerun`).
+- TopN: a masked top-k on the card per dispatch; the host gathers the
+  candidate rows and picks the final ones (`run_topn`).
 - Filter: the fused mask is computed on the card and only the selected
   row handles come back; the host gathers those rows.
 
 This is the single-device path of the JAX package's mesh program: one
 card, so S = 1 and the cross-shard merge (psum) is the identity.  The
 mesh keeps its name on the SQL surface (`engine:mesh` in EXPLAIN
-ANALYZE) so both packages report the same route.  Multi-device meshes,
-sort-mode aggregation, device TopN and join probes are not part of the
-port yet (ROADMAP): `_Analyzed` declines them with DeviceUnsupported.
+ANALYZE) so both packages report the same route.  Multi-device meshes
+and join probes are not part of the port yet (ROADMAP): `_Analyzed`
+declines probes with DeviceUnsupported.
 """
 
 from __future__ import annotations
@@ -440,6 +447,28 @@ def _all_true(n_pad: int):
 # the fused program
 # ---------------------------------------------------------------------------
 
+def _key_device(d):
+    """Device-side canonical group key: float keys stay in VALUE domain
+    (-0.0 folded into 0.0), everything else widens to int64.  NaN keys
+    are excluded by contract (SQL NULLs are tracked separately)."""
+    if d.dtype.is_floating_point:
+        return torch.where(d == 0.0, torch.zeros_like(d), d).to(
+            torch.float64)
+    return d.to(torch.int64)
+
+
+class MeshAggOverflow(Exception):
+    """A dispatch's distinct-group count exceeded the static output
+    budget; the caller peels the aggregation to a host tail."""
+
+
+def _agg_out_budget() -> int:
+    """The sort-mode group budget per dispatch before the clip to the
+    dispatch's rows (TIDB_TPU_AGG_OUT, default 2**17)."""
+    import os as _os
+
+    return int(_os.environ.get("TIDB_TPU_AGG_OUT", 1 << 17))
+
 def _cols_env(an: _Analyzed, col_order: List[int], datas, valids,
               lo: int, hi: int, params=None, col_layout=None, lvals=()):
     """Column environment for compile_expr over rows [lo, hi): widen the
@@ -518,10 +547,16 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
     It evaluates the rows of one dispatch's span (`_span_of(bounds)`),
     builds the union row mask over the range slots, and composes the
     fusion phase emitters (copr/fusion.py) — selection, then dense
-    group codes and aggregation for `agg`, or just the mask for
-    `filter` — so the fragment is one sequence of device ops.  Returns
-    (gcount, results) tensors for `agg` and (lo, mask) for `filter`."""
+    group codes and aggregation for `agg`, the top-k for `topn`, or just
+    the mask for `filter` — so the fragment is one sequence of device
+    ops.  Returns (gcount, results) tensors for dense `agg`, (row
+    handles, count) for `topn` and (lo, mask) for `filter`; sort-mode
+    `agg` is `_build_sort_agg_core`."""
     from . import fusion
+
+    if kind == "agg" and an.agg_mode == "sort":
+        return _build_sort_agg_core(an, col_order, n_global,
+                                    col_layout=col_layout)
 
     def region_ctx(datas, valids, del_mask, bounds, lvals, params):
         lo, hi = _span_of(bounds)
@@ -545,11 +580,102 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
                                   params)
             gidx = fusion.dense_group_codes(ctx)
             return fusion.dense_agg_results(ctx, gidx)
+    elif kind == "topn":
+        from ..serving import topn_budget
+
+        desc = fusion.topn_desc(an)
+        budget = topn_budget(an.topn.limit)
+
+        def core(datas, valids, del_mask, bounds, lvals, params):
+            lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
+                                 params)
+            key = fusion.topn_key(ctx)
+            idx, cnt = ops.masked_top_k(key, ctx.mask,
+                                        min(budget, ctx.n), desc)
+            return idx + lo, cnt
     else:  # filter: the fused selection mask
         def core(datas, valids, del_mask, bounds, lvals, params):
             lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
                                  params)
             return lo, ctx.mask
+    return core
+
+
+def _remap_source(col_order, datas, col_layout, cols, idx: int, lo: int,
+                  hi: int):
+    """The codes K1 reads for scan column `idx`: a hot column's narrow
+    wire slice as it is (no widening copy), a cold column's decoded
+    codes (K2's output plus the range bias)."""
+    j = col_order.index(idx)
+    if col_layout is not None and col_layout[j] is not None:
+        return cols[idx][0]
+    return datas[j].reshape(-1)[lo:hi]
+
+
+def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
+                         n_global: int, col_layout=None):
+    """Sort-based partial aggregation for arbitrary group keys (any NDV,
+    float, NULLable, computed keys): core(datas, valids, del_mask,
+    bounds, lvals, params) -> (n_uniq, keys, results, OUT).
+
+    Per dispatch: sort rows by (key bits..., null flags...,
+    selected-first), mark group boundaries, segment-reduce into a
+    static budget of OUT = min(TIDB_TPU_AGG_OUT, span rows) groups, and
+    emit compacted (keys, partial states); the ROOT final HashAgg merges
+    the partial chunks — the reference's coprocessor-partial/root-final
+    split (executor/aggregate.go:101-169).  Computed keys regather
+    their dictionary codes through the remap operands (the lvals tail
+    after the cold dictionary operands) with K1."""
+    from . import fusion
+    from .torch_eval import compile_expr
+
+    agg_ir = an.agg
+    n_cold = sum(1 for c in (col_layout or ()) if c is not None)
+    remaps = an.key_remaps
+    out_budget = _agg_out_budget()
+    needs_gofs = any(a.name == "first_row" for a in agg_ir.aggs)
+
+    def core(datas, valids, del_mask, bounds, lvals, params):
+        lo, hi = _span_of(bounds)
+        n_local = hi - lo
+        out = min(out_budget, n_local)
+        cols = _cols_env(an, col_order, datas, valids, lo, hi, params,
+                         col_layout=col_layout, lvals=lvals)
+        m = _mesh_masks(del_mask, bounds, lo, hi)
+        ctx = fusion.RegionContext(an=an, cols=cols, n=n_local, mask=m,
+                                   n_global=n_global)
+        m = fusion.selection_mask(ctx)
+        key_bits, key_flags = [], []
+        rslot = 0
+        for gi, g in enumerate(agg_ir.group_by):
+            rem = remaps[gi] if remaps is not None else None
+            if rem is not None:
+                # computed key: code-space gather through the runtime
+                # mapping operand (K1)
+                codes = _remap_source(col_order, datas, col_layout, cols,
+                                      rem.src_idx, lo, hi)
+                v = cols[rem.src_idx][1]
+                d = fusion.remap_codes(codes, lvals[n_cold + rslot],
+                                       n_local)
+                rslot += 1
+            else:
+                d, v = compile_expr(g, cols, n_local)
+            # float keys group in VALUE domain (-0.0 folds into 0.0);
+            # NULL rows get a fixed key so the flag alone separates them
+            k = _key_device(d)
+            key_bits.append(torch.where(v, k, torch.zeros_like(k)))
+            key_flags.append(v.to(torch.int64))
+        order, sm, skeys, seg, pos, n_uniq = fusion.sort_group_segments(
+            key_bits, key_flags, m, out)
+        out_keys = [k[pos] for k in skeys]
+        sgofs = None
+        if needs_gofs:
+            sgofs = order + lo  # global row index of each sorted row
+        results = fusion.grouped_partial_states(
+            agg_ir.aggs, lambda e: compile_expr(e, cols, n_local),
+            order, sm, seg, out, sgofs=sgofs, n_global=n_global)
+        return n_uniq, out_keys, results, out
+
     return core
 
 
@@ -571,6 +697,8 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
     core = _build_mesh_core(an, kind, col_order, n_global,
                             col_layout=col_layout)
+    if kind == "agg" and an.agg_mode == "sort":
+        return _wrap_sort_agg(an, core)
     if kind == "agg":
         tags = te._agg_tags(an.agg)
 
@@ -588,6 +716,19 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
         return wrapped
 
+    if kind == "topn":
+        def wrapped(datas, valids, del_mask, bounds, lvals, params):
+            with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
+                handles, cnt = core(datas, valids, del_mask, bounds, lvals,
+                                    params)
+            with span("copr.readback") as sp:
+                c = int(cnt)
+                out = handles[:c].cpu().numpy()
+                sp.set(bytes=out.nbytes)
+            return out
+
+        return wrapped
+
     def wrapped(datas, valids, del_mask, bounds, lvals, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
             lo, mask = core(datas, valids, del_mask, bounds, lvals, params)
@@ -598,6 +739,117 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
         return out
 
     return wrapped
+
+
+def _wrap_sort_agg(an: _Analyzed, core):
+    """The sort-mode program plus its readback: the group count first,
+    then only the first min(n_uniq, OUT) slots of every key and state
+    (nothing more when the budget blew — the caller raises)."""
+    from ..trace import span
+
+    tags = te._agg_tags(an.agg)
+
+    def wrapped(datas, valids, del_mask, bounds, lvals, params):
+        with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
+            n_uniq, keys, results, out = core(datas, valids, del_mask,
+                                              bounds, lvals, params)
+        with span("copr.readback") as sp:
+            k = int(n_uniq)
+            if k > out:
+                keys, results = [], []
+            else:
+                keys = [t[:k].cpu().numpy() for t in keys]
+                results = [tuple(x[:k].cpu().numpy() for x in r)
+                           if isinstance(r, tuple) else r[:k].cpu().numpy()
+                           for r in results]
+            sp.set(bytes=sum(x.nbytes for x in keys) + sum(
+                sum(x.nbytes for x in r) if isinstance(r, tuple)
+                else r.nbytes for r in results))
+        return {"OUT": out, "n_uniq": k, "keys": keys,
+                "results": list(zip(tags, results))}
+
+    return wrapped
+
+
+def _sort_agg_chunks(out: dict, table, an: _Analyzed) -> List[Chunk]:
+    """One dispatch's compacted groups -> a partial chunk [keys...,
+    states...] in the layout the CPU engine emits (the root final agg
+    merges).  Raises MeshAggOverflow when the group budget blew."""
+    from ..store.blockstore import _decode_dict
+
+    OUT, k_s = out["OUT"], out["n_uniq"]
+    if k_s > OUT:
+        raise MeshAggOverflow(f"{k_s} groups > budget {OUT}")
+    if k_s == 0:
+        return []
+    nk = len(an.agg.group_by)
+    cols: List[Column] = []
+    for i, g in enumerate(an.agg.group_by):
+        bits = out["keys"][i]
+        flags = out["keys"][nk + i].astype(np.bool_)
+        ft = g.ftype
+        rem = an.key_remaps[i] if an.key_remaps else None
+        if rem is not None and rem.out_dict is not None:
+            # computed-key codes decode through the remap's OUTPUT
+            # dictionary (sorted, so code order == string order);
+            # INT-valued remaps carry the computed values directly
+            data = _decode_dict(bits.astype(np.int64), rem.out_dict)
+        elif ft.kind == TypeKind.FLOAT:
+            data = bits.astype(np.float64, copy=False)
+        elif ft.kind == TypeKind.STRING:
+            store_ci = an.scan.columns[g.index]
+            data = _decode_dict(bits.astype(np.int64),
+                                table.cols[store_ci].dictionary)
+        else:
+            data = bits.astype(ft.np_dtype)
+        cols.append(Column(ft, data, flags if not flags.all() else None))
+    for a, (tag, r) in zip(an.agg.aggs, out["results"]):
+        pts = a.partial_types()
+        if tag == "count":
+            cols.append(Column(pts[0], r.astype(np.int64)))
+        elif tag == "sumcount":
+            sm_, c = r
+            cols.append(Column(pts[0], sm_.astype(pts[0].np_dtype), c > 0))
+            if a.name == "avg":
+                cols.append(Column(pts[1], c.astype(np.int64)))
+        elif tag == "minmax":
+            v, c = r
+            if a.args[0].ftype.kind == TypeKind.STRING:
+                store_ci = an.scan.columns[a.args[0].index]
+                obj = _decode_dict(v.astype(np.int64),
+                                   table.cols[store_ci].dictionary)
+                cols.append(Column(pts[0], obj, c > 0))
+            else:
+                cols.append(Column(pts[0], v.astype(pts[0].np_dtype), c > 0))
+        elif tag == "argfirst":
+            vals, valid = _gather_first_values(table, an, a.args[0], r, k_s)
+            cols.append(Column(pts[0], vals, valid))
+    return [Chunk(cols)]
+
+
+def _peel_agg_rerun(storage, req, tid: int, dag: DAG, reason: str):
+    """MeshAggOverflow rung: re-run the SAME fragment with the fused
+    region cut just before the aggregation — the scan+selection head
+    streams from the card and the agg runs as a host tail over the
+    still-partial chunks.  Returns the filter-stream generator, or None
+    when no device head remains (a scan-only head reduces nothing; the
+    caller then leaves the fragment to the per-region rung)."""
+    from .ir import AggregationIR
+
+    cut = next((i for i, x in enumerate(dag.executors)
+                if isinstance(x, AggregationIR)), 0)
+    if cut <= 1:
+        return None
+    from ..metrics import REGISTRY
+    from ..trace import annotate
+
+    REGISTRY.inc("mesh_agg_peel_total")
+    annotate(mesh_agg_peel=reason[:80])
+    # the forced cut analyzes cleanly (no DeviceUnsupported), so the
+    # split label is supplied: a data-dependent budget overflow, not an
+    # unsupported operator
+    return _run_mesh_once(storage, req, tid, max_cut=cut,
+                          forced_label="agg-overflow")
 
 
 def _compile_labeled(fn, kind: str):
@@ -750,10 +1002,18 @@ def _observe_fragment(table, an: _Analyzed):
         obs([x for a in an.agg.aggs for x in a.args], "agg_arg")
 
 
-def _run_mesh_once(storage, req: CopRequest, tid: int):
+def _run_mesh_once(storage, req: CopRequest, tid: int,
+                   max_cut: Optional[int] = None,
+                   forced_label: Optional[str] = None):
     """One attempt at running the request on the card; None if
     ineligible.  Raises on runtime failures — try_run_mesh owns the
-    retry."""
+    retry.
+
+    `max_cut` caps the fused region at an executor boundary — the
+    MeshAggOverflow peel re-enters here with the cut just before the
+    aggregation; `forced_label` names the split reason for such forced
+    cuts (the region analyzes cleanly, so plan_regions cannot classify
+    them itself)."""
     dag = DAG.from_dict(req.dag)
     table = storage.table(tid)
     if table.base_rows == 0 or table.base_ts > req.ts:
@@ -771,7 +1031,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
     # compilable executor prefix becomes the fused program; an unfusable
     # suffix runs as a host tail over the region's output
     try:
-        plan = plan_regions(dag, table)
+        plan = plan_regions(dag, table, max_cut=max_cut)
     except DeviceUnsupported as e:
         req.mesh_reject_reason = str(e)
         return None
@@ -779,8 +1039,11 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
         req.mesh_reject_reason = (
             plan.split_reason or "fragment not device-eligible")
         return None
+    if plan.tail and forced_label and plan.split_reason is None:
+        plan.reason_label = forced_label
     an, tail = plan.an, plan.tail
-    kind = "agg" if an.agg is not None else "filter"
+    kind = "agg" if an.agg is not None else (
+        "topn" if an.topn is not None else "filter")
     # hoist predicate constants into runtime parameter vectors
     # (serving/params.py): the fingerprint serializes slots, so
     # parameter-different queries reuse the same cached program
@@ -816,6 +1079,13 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
             valids.append(v)
             col_layout.append(None)
             wire_sig.append((str(d.dtype), v is None))
+    # computed-key remap operands ride the lvals tail AFTER the cold
+    # dictionary operands (the ordering _build_sort_agg_core reads);
+    # each mapping is uploaded once per base version (KeyRemap caches
+    # its device copy, and the remap itself is cached per version)
+    for r in (an.key_remaps or ()):
+        if r is not None:
+            lvals.append(r.on_device(dev))
     lvals = tuple(lvals)
     if not any(col_layout):
         col_layout = None
@@ -825,6 +1095,10 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
           + f"wire={wire_sig}"
           + (f"|hp={len(hoisted[0])},{len(hoisted[1])}"
              if hoisted is not None else ""))
+    if kind == "agg" and an.agg_mode == "sort":
+        # the OUT budget shapes the program: a re-tuned TIDB_TPU_AGG_OUT
+        # must not reuse a program built with the old budget
+        fp += f"|aggout={_agg_out_budget()}"
     from ..trace import annotate, span
 
     annotate(device_ids=list(devs))
@@ -875,6 +1149,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
 
     chunks: List[Chunk] = []
     agg_accum = None
+    topn_parts: List[Chunk] = []
     if bounds:
         # cancellation seam around the dispatch sequence
         scope_check()
@@ -885,12 +1160,15 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
                        end=bounds[-1][1])
         # interruptible chunked dispatch: the same program runs over
         # range sub-bounds sized to the tidb_tpu_dispatch_chunk_ms
-        # budget, touching only each chunk's rows; dense agg partials
-        # accumulate through _merge_mesh_agg
+        # budget, touching only each chunk's rows.  Partial states fold
+        # across chunks: sort-agg chunks are root-merged partials, dense
+        # agg accumulates via _merge_mesh_agg, TopN keeps every chunk's
+        # candidates for the host's final pick
         sub_bounds = chunk_bounds(bounds, chunk_budget_rows(kind),
                                   MESH_RANGE_SLOTS)
         n_chunks = len(sub_bounds)
-        for ci, sub in enumerate(sub_bounds):
+
+        def _chunk_dispatch(ci, sub):
             if ci:
                 # between-chunk seam: KILL/timeout/mem-quota/shutdown
                 scope_check()
@@ -903,19 +1181,52 @@ def _run_mesh_once(storage, req: CopRequest, tid: int):
                 # admission re-acquired per chunk: a depleted resource
                 # group yields the device at every chunk boundary
                 with dispatch_admission(DISPATCH_LOCK):
-                    gcount, results = fn(datas, valids, del_mask, sub,
-                                         lvals, params)
+                    out = fn(datas, valids, del_mask, sub, lvals, params)
             observe_chunk(kind, (time.perf_counter() - t0) * 1000.0, rows)
-            agg_accum = _merge_mesh_agg(agg_accum, gcount, results, table,
-                                        an)
+            return out
+
+        if kind == "agg" and an.agg_mode == "sort":
+            try:
+                for ci, sub in enumerate(sub_bounds):
+                    chunks.extend(_sort_agg_chunks(
+                        _chunk_dispatch(ci, sub), table, an))
+            except MeshAggOverflow as e:
+                # data-dependent, by design: too many distinct groups
+                # per dispatch.  Re-enter with the AGG PEELED to the
+                # host tail (scan+selection stays on the card and
+                # streams); earlier chunks' partials are discarded —
+                # the peel re-runs the WHOLE region
+                peeled = _peel_agg_rerun(storage, req, tid, dag, str(e))
+                if peeled is not None:
+                    return peeled
+                req.mesh_reject_reason = str(e)
+                return None
+        elif kind == "agg":
+            for ci, sub in enumerate(sub_bounds):
+                gcount, results = _chunk_dispatch(ci, sub)
+                agg_accum = _merge_mesh_agg(agg_accum, gcount, results,
+                                            table, an)
+        else:  # topn
+            for ci, sub in enumerate(sub_bounds):
+                handles = _chunk_dispatch(ci, sub)
+                if len(handles):
+                    topn_parts.append(table.gather_chunk(
+                        list(an.scan.columns), handles))
         scope_check()  # post-dispatch seam: expired statements stop here
 
     # delta rows (committed inserts/updates) go through the CPU engine
     res = _delta_chunk(req, dag, an, inserted)
     if res is not None:
-        chunks.append(res)
+        (topn_parts if kind == "topn" else chunks).append(res)
     if agg_accum is not None:
         chunks.insert(0, te._device_agg_to_chunk(agg_accum, table, an))
+    if topn_parts:
+        from .cpu_engine import run_topn
+
+        merged = topn_parts[0]
+        for p in topn_parts[1:]:
+            merged = merged.append(p)
+        chunks = [run_topn(an.topn.order_by, an.topn.limit, merged)]
 
     from .engine import _merge_tail
 

@@ -11,7 +11,8 @@ device path.
 
 Anything the port does not run on the device raises DeviceUnsupported
 and the caller falls back to the CPU engine (or, inside a fused region,
-peels the executor into a host tail).
+peels the executor into a host tail): today the runtime join probes and
+lookups.
 """
 
 from __future__ import annotations
@@ -137,12 +138,88 @@ def rewrite_for_dict_resolved(e: Expression, resolve) -> Expression:
 
 
 
+def _reindex_expr(e: Expression, mapping) -> Expression:
+    """Clone `e` with every ColumnExpr index passed through `mapping`."""
+    from .ir import deserialize_expr
+
+    e2 = deserialize_expr(serialize_expr(e))
+
+    def walk(x):
+        if isinstance(x, ColumnExpr):
+            x.index = mapping(x.index)
+        elif isinstance(x, ScalarFunc):
+            for a in x.args:
+                walk(a)
+
+    walk(e2)
+    return e2
+
+
+#: largest non-contiguous dict-predicate code set lowered as an in-list
+#: (one Constant per code rides the program AND its fingerprint; sorted
+#: dictionaries keep prefix patterns contiguous, so real LIKE-prefix
+#: shapes never reach this cap — only mid-string matches over
+#: high-cardinality dictionaries do, and those belong on the host lane)
+DICT_PRED_IN_MAX = 256
+
+
 def _lower_dict_pred(e: ScalarFunc, resolve) -> Expression:
-    """Computed predicates over one dict column (LIKE patterns, SUBSTR /
-    LENGTH comparisons) lower to code-set tests in the JAX package; the
-    port's lowering waits for its slice, so such a condition keeps the
-    region off the device."""
-    raise DeviceUnsupported("dictionary predicate lowering not ported")
+    """A computed predicate over ONE dict column (LIKE patterns, SUBSTR /
+    LENGTH comparisons) -> a code test: the host evaluates it once per
+    dictionary entry (fusion.dict_pred_codes) and the device compares
+    codes — a range when the matching codes are contiguous, an in-list
+    otherwise."""
+    from . import fusion
+    from ..expr.pushdown import dict_pred_source
+
+    cols = dict_pred_source(e)
+    src = cols[0]
+    where = resolve(src.index)
+    if where is None:
+        raise DeviceUnsupported("dict predicate column not resolvable")
+    table, scan, sp = where
+    # evaluate in the owning side's scan layout (the predicate reads ONE
+    # column, so reindexing every leaf to `sp` is exact), then emit the
+    # lowered comparison against the ORIGINAL position
+    shifted = _reindex_expr(e, lambda _i: sp)
+    _idx, codes, _nd = fusion.dict_pred_codes(table, scan, shifted)
+    col = ColumnExpr(src.index, src.ftype, src.name, -1)
+    if len(codes) == 0:
+        # never-matching comparison, NOT a bare FALSE constant: the
+        # column's validity must keep riding (NULL rows evaluate to
+        # NULL, so `NOT <pred>` stays NULL instead of flipping TRUE)
+        return ScalarFunc("=", [col, Constant(-1, col.ftype)],
+                          e.ftype, {})
+    # no all-match shortcut: the code comparison must keep carrying the
+    # column's validity (a NULL row never matches a predicate)
+    lo, hi = int(codes[0]), int(codes[-1])
+    if hi - lo + 1 == len(codes):
+        # contiguous code range (sorted dictionaries make every prefix
+        # pattern contiguous): two comparisons instead of a member scan
+        if lo == hi:
+            return ScalarFunc("=", [col, Constant(lo, col.ftype)],
+                              e.ftype, {})
+        return ScalarFunc("and", [
+            ScalarFunc(">=", [col, Constant(lo, col.ftype)], e.ftype, {}),
+            ScalarFunc("<=", [col, Constant(hi, col.ftype)], e.ftype, {}),
+        ], e.ftype, {})
+    if len(codes) > DICT_PRED_IN_MAX:
+        # a non-contiguous match set over a high-cardinality dictionary
+        # would embed one Constant per code into the program AND its
+        # fingerprint — decline so the host lane serves it instead
+        raise DeviceUnsupported("dict predicate code set too large")
+    return ScalarFunc(
+        "in", [col] + [Constant(int(c), col.ftype) for c in codes],
+        e.ftype, {})
+
+
+def _string_leaf(e: Expression) -> bool:
+    """Does the expression read any STRING-typed column?"""
+    if isinstance(e, ColumnExpr):
+        return e.ftype.kind == TypeKind.STRING
+    if isinstance(e, ScalarFunc):
+        return any(_string_leaf(a) for a in e.args)
+    return False
 
 
 def _split_col_consts(e: ScalarFunc):
@@ -173,29 +250,33 @@ class _Analyzed:
         self.selections: List[SelectionIR] = []
         self.projection: Optional[ProjectionIR] = None
         self.agg: Optional[AggregationIR] = None
+        self.topn: Optional[TopNIR] = None
         self.limit: Optional[int] = None
         for ex in dag.executors[1:]:
             if isinstance(ex, SelectionIR):
-                if self.agg or self.projection:
-                    raise DeviceUnsupported("selection after agg on device")
+                if self.agg or self.topn or self.projection:
+                    raise DeviceUnsupported(
+                        "selection after agg/topn on device")
                 self.selections.append(ex)
             elif isinstance(ex, (JoinProbeIR, JoinLookupIR)):
                 # runtime join filters and broadcast lookup joins on the
                 # device are not part of the port yet
                 raise DeviceUnsupported("device join probe not ported")
             elif isinstance(ex, ProjectionIR):
-                if self.agg:
-                    raise DeviceUnsupported("projection after agg on device")
+                if self.agg or self.topn:
+                    raise DeviceUnsupported(
+                        "projection after agg/topn on device")
                 self.projection = ex
             elif isinstance(ex, AggregationIR):
-                if self.agg or self.projection:
+                if self.agg or self.topn or self.projection:
                     raise DeviceUnsupported("late aggregation on device")
                 if ex.mode != "partial":
                     raise DeviceUnsupported("device agg is partial-only")
                 self.agg = ex
             elif isinstance(ex, TopNIR):
-                # device TopN (ops/topk) is not part of the port yet
-                raise DeviceUnsupported("device topn not ported")
+                if self.agg or self.topn:
+                    raise DeviceUnsupported("topn after agg on device")
+                self.topn = ex
             elif isinstance(ex, LimitIR):
                 self.limit = ex.limit if self.limit is None else min(
                     self.limit, ex.limit
@@ -214,6 +295,8 @@ class _Analyzed:
         ]
         if self.projection is not None:
             all_exprs += self.projection.exprs
+        if self.topn is not None:
+            all_exprs += [e for e, _ in self.topn.order_by]
         for ex2 in all_exprs:
             if not can_push_expr(ex2, dict_cols=dict_scan_idx):
                 raise DeviceUnsupported(f"expr not device-eligible: {ex2}")
@@ -253,8 +336,14 @@ class _Analyzed:
         self.group_cols: List[int] = []  # scan-output indices
         self.group_card: List[Tuple[int, int]] = []  # (lo, card) per key
         # 'dense': mixed-radix int codes + segment reduce (small key
-        # spaces) — the one aggregation mode the port runs on device
+        # spaces); 'sort': sort + boundary segments (arbitrary NDV,
+        # float/NULLable/computed keys)
         self.agg_mode = "dense"
+        #: per-group-key dict-code remaps (computed string keys lowered
+        #: to code-space gathers) — None when no key needs one
+        self.key_remaps = None
+        #: packed lexicographic multi-column TopN spec, else None
+        self.topn_pack = None
         if self.agg is not None:
             for a in self.agg.aggs:
                 if a.distinct:
@@ -262,12 +351,74 @@ class _Analyzed:
                 if a.name not in ("count", "sum", "avg", "min", "max",
                                   "first_row"):
                     raise DeviceUnsupported(f"device agg {a.name}")
-            # high-NDV / float / NULLable / computed group keys group by
-            # sorting in the JAX package (agg_mode 'sort', with computed
-            # string keys remapped in code space); the port's sort-mode
-            # aggregation waits for its slice, so such a fragment keeps
-            # its aggregation on the host (DeviceUnsupported peels it)
-            self._analyze_dense_keys(table)
+            try:
+                self._analyze_dense_keys(table)
+            except DeviceUnsupported:
+                # high-NDV / float / NULLable / non-column keys: group by
+                # sorting — keys only need to be device-compilable.
+                # Computed keys READING a dict-encoded string column
+                # lower to code-space gathers (fusion.build_key_remap):
+                # the host evaluates the function once per DICTIONARY
+                # entry and the device re-maps row codes through a
+                # runtime operand (K1) — no host tail, no decode.
+                from .fusion import build_key_remap
+
+                remaps = []
+                for k in self.agg.group_by:
+                    if not isinstance(k, ColumnExpr) and (
+                            k.ftype.kind == TypeKind.STRING
+                            or _string_leaf(k)):
+                        # STRING outputs remap into an output dictionary;
+                        # INT-valued ones (LENGTH/ASCII) remap straight
+                        # to computed values
+                        remaps.append(build_key_remap(table, self.scan, k))
+                        continue
+                    if not can_push_expr(k, dict_cols=dict_scan_idx):
+                        raise
+                    remaps.append(None)
+                if any(r is not None for r in remaps):
+                    self.key_remaps = remaps
+                self.agg_mode = "sort"
+                self.num_groups = 0
+                self.group_cols = []
+                self.group_card = []
+        if self.topn is not None and len(self.topn.order_by) != 1:
+            # exact compound ordering: pack every key's stats-bounded
+            # rank into ONE integer sort key (fusion.compound_topn_key);
+            # unpackable key sets raise with the compound-order reason
+            self._analyze_compound_topn(table)
+
+    def _analyze_compound_topn(self, table):
+        """Build the packed lexicographic sort-key spec for a
+        multi-column TopN: per key (col_idx, lo, hi, slots, desc,
+        has_null) with a NULL rank slot when the column is nullable.
+        The slot product is capped at 2**52 so the f64 top-k comparison
+        stays exact."""
+        pack = []
+        total = 1
+        for e, desc in self.topn.order_by:
+            if not isinstance(e, ColumnExpr):
+                raise DeviceUnsupported(
+                    f"compound order key must be a plain column: {e}")
+            if e.ftype.kind == TypeKind.FLOAT:
+                raise DeviceUnsupported(
+                    "compound order over unbounded float sort key")
+            if e.index >= len(self.scan.columns):
+                raise DeviceUnsupported(
+                    "compound order key over join payload")
+            store_ci = self.scan.columns[e.index]
+            lo, hi, has_null = table.column_stats(store_ci)
+            if hi < lo:
+                lo, hi = 0, 0
+            slots = (hi - lo + 1) + (1 if has_null else 0)
+            total *= slots
+            if total > (1 << 52):
+                raise DeviceUnsupported(
+                    "compound order key space too large for a packed "
+                    "sort key")
+            pack.append((e.index, int(lo), int(hi), int(slots),
+                         bool(desc), bool(has_null)))
+        self.topn_pack = pack
 
     def _analyze_dense_keys(self, table):
         g = 1
@@ -317,6 +468,9 @@ class _Analyzed:
         if self.proj_exprs is not None:
             for p in self.proj_exprs:
                 p.collect_columns(need)
+        if self.topn is not None:
+            for e, _d in self.topn.order_by:
+                e.collect_columns(need)
         width = len(self.scan.columns)
         return sorted(i for i in need if i < width)
 
@@ -345,6 +499,32 @@ def _fingerprint(an: _Analyzed, kind: str) -> str:
                 for a in an.agg.aggs
             ],
         }
+    if an.topn is not None:
+        from ..serving import topn_budget
+
+        e, desc = an.topn.order_by[0]
+        # pow2-bucketed device budget: LIMIT 5 and LIMIT 7 share one
+        # program; the exact limit re-applies at the host merge
+        payload["topn"] = {
+            "key": serialize_expr(e), "desc": desc,
+            "k": topn_budget(an.topn.limit),
+        }
+        if an.topn_pack is not None:
+            # packed compound ordering: every key + its static rank
+            # layout (lo/slots derive from column stats) shapes it
+            payload["topn"]["keys"] = [
+                [serialize_expr(e2), bool(d2)]
+                for e2, d2 in an.topn.order_by
+            ]
+            payload["topn"]["pack"] = [
+                [p[1], p[3], p[4], p[5]] for p in an.topn_pack
+            ]
+    if an.key_remaps:
+        # remap arity + pow2 caps shape the program; mapping CONTENTS
+        # stay runtime operands (one program serves every dictionary
+        # content)
+        payload["remaps"] = [r.cap if r is not None else None
+                             for r in an.key_remaps]
     return json.dumps(payload, sort_keys=True, default=str)
 
 

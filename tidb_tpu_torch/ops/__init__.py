@@ -55,6 +55,7 @@ from .segment import (  # noqa: E402
     masked_segment_argfirst,
     segment_min,
 )
+from .topk import masked_top_k  # noqa: E402
 
 __all__ = [
     "use_device",
@@ -66,4 +67,5 @@ __all__ = [
     "masked_segment_max",
     "masked_segment_argfirst",
     "segment_min",
+    "masked_top_k",
 ]
