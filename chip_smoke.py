@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the sources in this checkout
-(K1 `remap_codes` and K2 `unpack_codes`, one nvcc each, concurrently),
-holds each against its plain PyTorch version on the card and times it,
-then drives the port's paths end to end from SQL over a synthetic
-lineitem:
+(K1 `remap_codes` and K2 `unpack_codes`, one nvcc each, concurrently;
+ptxas's registers and spills per kernel are printed), holds each against
+its plain PyTorch version on the card and times it (K2 in both forms:
+bare, and with the cold tier's range decode fused in by an int32 or
+int64 bias, beside the unfused sequence it replaces), then drives the
+port's paths end to end from SQL over a synthetic lineitem:
 
 - at SF10 (60 M rows), hot (every column resident) and cold (the
   hot-tier cap below the table's wire bytes, so the packable columns
@@ -29,7 +31,7 @@ own arrays, and Q1/Q6 at SF1 against the port's host engine.  Each
 cell's kernel launches are counted from zero; every input the path
 hands K1 and K2 is recorded, and each kernel is held against its plain
 version and timed again on those very inputs: the `kernels` line
-reports the input the path launched most.
+reports the input (and for K2 the form) the path launched most.
 
 Output: human-readable lines, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as the last line
@@ -48,6 +50,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -97,89 +100,156 @@ def card_line() -> str:
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def time_cuda(fn, reps: int = 25, flush=None) -> float:
-    """Median milliseconds of `fn` over `reps` runs after one warm-up,
-    each between CUDA events, with L2 flushed before every run (the
-    packed column of a real scan is not cache-resident)."""
+def time_turns(fns: dict, reps: int = 25, flush=None) -> dict:
+    """Median milliseconds of each of `fns` (name -> callable), timed in
+    turns within one call: one warm-up each, then `reps` rounds that run
+    every function once, in order and then reversed on alternate rounds
+    (A B, B A, ...), each between CUDA events with L2 flushed before."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns.values():
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            if flush is not None:
+                flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def check_and_time(packed, bits: int, n: int, flush) -> dict:
-    """K2 on one input: exact equality with the plain version (raises
-    otherwise), then both timed; the bound is the bytes K2 must move."""
+def time_cuda(fn, reps: int = 25, flush=None) -> float:
+    """Median milliseconds of `fn` alone (`time_turns` with one
+    function)."""
+    return time_turns({"ms": fn}, reps, flush)["ms"]
+
+
+def k2_out(bias) -> str:
+    """K2's output dtype: uint8 bare, the bias's dtype fused."""
+    return "uint8" if bias is None else str(bias.dtype)[6:]
+
+
+def k2_tag(bits: int, n: int, bias) -> str:
+    return f"bits={bits} out={k2_out(bias)} n={n}"
+
+
+def k2_times(r: dict) -> str:
+    unfused = (f", unfused {r['unfused_ms']:.4f} ms" if "unfused_ms" in r
+               else "")
+    return (f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            f"{unfused}, bound {r['bound_ms']:.4f} ms")
+
+
+def check_k2(packed, bits: int, n: int, bias=None) -> int:
+    """K2 on one input against its plain version: the same dtype, shape
+    and values exactly (raises otherwise); returns max |err| (0)."""
     import torch
 
     from tidb_tpu_torch.copr.cuda import unpack_codes, unpack_codes_plain
 
-    got = unpack_codes(packed, bits, n)
-    want = unpack_codes_plain(packed, bits, n)
+    got = unpack_codes(packed, bits, n, bias=bias)
+    want = unpack_codes_plain(packed, bits, n, bias=bias)
     torch.cuda.synchronize()
-    if got.shape != (n,) or got.dtype != torch.uint8:
-        raise AssertionError(f"unpack_codes bits={bits} n={n}: "
-                             f"shape {tuple(got.shape)} {got.dtype}")
-    err = int((got.to(torch.int16) - want.to(torch.int16))
+    tag = k2_tag(bits, n, bias)
+    if got.shape != (n,) or got.dtype != want.dtype:
+        raise AssertionError(f"unpack_codes {tag}: shape "
+                             f"{tuple(got.shape)} {got.dtype}")
+    err = int((got.to(torch.int64) - want.to(torch.int64))
               .abs().max().item())
-    if err != 0:
-        raise AssertionError(
-            f"unpack_codes bits={bits} n={n}: max |err| {err}")
-    nbytes = n * bits // 8 + n
-    return {
-        "bits": bits, "n": n, "max_abs_err": err,
-        "ms": time_cuda(lambda: unpack_codes(packed, bits, n), flush=flush),
-        "plain_ms": time_cuda(lambda: unpack_codes_plain(packed, bits, n),
-                              flush=flush),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
-    }
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"unpack_codes {tag}: max |err| {err}")
+    return err
+
+
+def time_k2(packed, bits: int, n: int, flush, bias=None) -> dict:
+    """K2 on one input timed in turns with its plain version and, for the
+    fused form, with the sequence the fusion replaces (the bare kernel,
+    then the widening copy, then the add); the bound is the bytes the
+    fused pass must move (n*bits/8 read, n*sizeof(out) written)."""
+    from tidb_tpu_torch.copr.cuda import unpack_codes, unpack_codes_plain
+
+    fns = {"ms": lambda: unpack_codes(packed, bits, n, bias=bias),
+           "plain_ms": lambda: unpack_codes_plain(packed, bits, n,
+                                                  bias=bias)}
+    if bias is not None:
+        fns["unfused_ms"] = (lambda: unpack_codes(packed, bits, n)
+                             .to(bias.dtype) + bias)
+    r = time_turns(fns, flush=flush)
+    size = 1 if bias is None else bias.element_size()
+    nbytes = n * bits // 8 + n * size
+    r.update({"bits": bits, "n": n, "bytes": nbytes,
+              "out_dtype": k2_out(bias),
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return r
+
+
+#: K2's forms: (bits, bias value and dtype or None); negative biases
+#: among them, and 8 bits only with a bias (bare it launches nothing)
+K2_FORMS = ([(b, None) for b in (1, 2, 4)]
+            + [(b, (-1_000_000_007, "int32")) for b in (1, 2, 4, 8)]
+            + [(b, (1234, "int64")) for b in (1, 2, 4)]
+            + [(8, (-(1 << 40), "int64"))])
+#: a row count that is a multiple of neither 16 (a thread's rows per
+#: step) nor 512 (a warp's), so the kernel's ragged end runs
+K2_RAGGED = 16 * 65536 + 8
 
 
 def kernel_phase():
-    """K2 against its plain version on the card, at 1, 2 and 4 bits, for
-    64 Mi rows and for 8 rows: exact equality; timing at 64 Mi rows."""
+    """K2 against its plain version on the card, bare (1, 2 and 4 bits)
+    and fused with an int32 or int64 bias (1, 2, 4 and 8 bits): exact
+    equality at n = 8, at a ragged n with the packed slice starting 0-7
+    bytes past an aligned address, and at 64 Mi rows; timing at 64 Mi
+    rows (aligned, and 1 byte past alignment)."""
     import torch
+
+    from tidb_tpu_torch.copr.cuda import unpack_codes
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    for bits in (1, 2, 4):
-        for n in (8, KERNEL_ROWS):
-            packed = torch.randint(0, 256, (n * bits // 8,),
-                                   dtype=torch.uint8, device=dev,
-                                   generator=gen)
-            r = check_and_time(packed, bits, n, flush)
-        log(f"K2 unpack_codes bits={bits} n={n}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bytes']} bytes at 3.35 TB/s), exact at n=8 and n={n}")
+    for bits, bias_spec in K2_FORMS:
+        bias = None if bias_spec is None else torch.tensor(
+            bias_spec[0], dtype=getattr(torch, bias_spec[1]), device=dev)
+        for n in (8, K2_RAGGED, KERNEL_ROWS):
+            nb = n * bits // 8
+            buf = torch.randint(0, 256, (nb + 8,), dtype=torch.uint8,
+                                device=dev, generator=gen)
+            for off in (range(8) if n == K2_RAGGED else (0,)):
+                check_k2(buf[off:off + nb], bits, n, bias)
+        r = time_k2(buf[:nb], bits, n, flush, bias)
+        off1 = time_cuda(lambda: unpack_codes(buf[1:1 + nb], bits, n,
+                                              bias=bias), flush=flush)
+        log(f"K2 unpack_codes {k2_tag(bits, n, bias)}: {k2_times(r)} "
+            f"({r['bytes']} bytes at 3.35 TB/s); kernel with the packed "
+            f"input 1 byte past alignment {off1:.4f} ms; exact at n=8, "
+            f"n={K2_RAGGED} (offsets 0-7) and n={n}")
+        del buf
     del flush
     torch.cuda.empty_cache()
 
 
 def record_unpack_inputs():
-    """Route the path's K2 calls through a recorder: (bits, n) ->
-    [calls, the first packed input].  Returns (record, restore)."""
+    """Route the path's K2 calls through a recorder: (bits, n, output
+    dtype) -> [calls, the first packed input, its bias].  Returns
+    (record, restore)."""
     import tidb_tpu_torch.copr.cuda as kcuda
 
     real = kcuda.unpack_codes
     seen = {}
 
-    def recorder(packed, bits, n):
-        rec = seen.setdefault((bits, n), [0, packed])
+    def recorder(packed, bits, n, bias=None):
+        key = (bits, n, k2_out(bias))
+        rec = seen.setdefault(key, [0, packed, bias])
         rec[0] += 1
-        return real(packed, bits, n)
+        return real(packed, bits, n, bias=bias)
 
     kcuda.unpack_codes = recorder
 
@@ -191,21 +261,23 @@ def record_unpack_inputs():
 
 def path_kernel_phase(seen) -> list:
     """K2 against its plain version on the inputs the cold queries gave
-    it, one per (bits, n) shape: exact equality, timing at that n."""
+    it, one per (bits, n, output dtype): exact equality, then the kernel
+    timed at that input in turns with its plain version and with the
+    unfused sequence it replaces."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.uint8,
                         device=torch.device("cuda"))
     out = []
-    for (bits, n), (calls, packed) in sorted(seen.items()):
-        if bits == 8:
+    for (bits, n, _dt), (calls, packed, bias) in sorted(seen.items()):
+        if bits == 8 and bias is None:
             continue  # identity: no launch
-        r = check_and_time(packed, bits, n, flush)
-        r["calls"] = calls
+        err = check_k2(packed, bits, n, bias)
+        r = time_k2(packed, bits, n, flush, bias)
+        r.update({"calls": calls, "max_abs_err": err})
         out.append(r)
-        log(f"K2 on the path's input bits={bits} n={n} ({calls} calls): "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms, exact")
+        log(f"K2 on the path's input {k2_tag(bits, n, bias)} ({calls} "
+            f"calls): {k2_times(r)}, exact")
     del flush
     torch.cuda.empty_cache()
     if not out:
@@ -699,7 +771,7 @@ def kernel_entry(name: str, launches: int, on_path: list) -> dict:
         "bound_by": "bytes", "library_ms": k.get("library_ms"),
         "n": k["n"],
     }
-    for extra in ("bits", "code", "map", "cap"):
+    for extra in ("bits", "out_dtype", "unfused_ms", "code", "map", "cap"):
         if extra in k:
             entry[extra] = k[extra]
     return entry
@@ -714,7 +786,7 @@ def main(argv) -> int:
         return 2
     import tidb_tpu_torch  # noqa: F401  (fails outside a checkout)
     from tidb_tpu_torch import ops
-    from tidb_tpu_torch.copr.cuda import build_all
+    from tidb_tpu_torch.copr.cuda import build_all, ptxas_report
     from tidb_tpu_torch.layout import autotuner, set_hot_cap_bytes
     from tidb_tpu_torch.metrics import REGISTRY
     from tidb_tpu_torch.tpch_data import (LINEITEM_Q1, LINEITEM_Q6,
@@ -732,6 +804,13 @@ def main(argv) -> int:
     build_secs = build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in build_secs.items())})")
+    for name in build_secs:
+        for fn, regs, st, ld in ptxas_report(name):
+            # the template's name and arguments, not the parameter list
+            fn = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::"
+                        r"|\([^()]*\)$", "", fn)
+            log(f"  ptxas {name}: {fn}: {regs} registers, "
+                f"spill stores {st} B, spill loads {ld} B")
 
     kernel_phase()
     k1_phase()

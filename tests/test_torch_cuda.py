@@ -3,9 +3,10 @@
 Every test here is marked `cuda` and skips without a CUDA device (a
 CUDA kernel has no CPU mode; its plain version is what the CPU tests
 check).  The file imports neither jax nor the JAX package, so it runs
-on a machine with the card:
+on a machine with the card, without tests/conftest.py (which imports
+jax):
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
 
 import numpy as np
@@ -32,20 +33,38 @@ def _packed(bits: int, n: int, seed: int = 3):
     return codes, pack_codes(codes, bits)
 
 
+#: (bits, bias): the bare form at 1, 2 and 4 bits (8 bits bare is the
+#: identity and launches nothing), the fused range decode at every width
+#: with a negative int32 and an int64 bias beyond 32 bits
+UNPACK_FORMS = ([(b, None) for b in (1, 2, 4)]
+                + [(b, (-7, torch.int32)) for b in (1, 2, 4, 8)]
+                + [(b, ((1 << 40) + 3, torch.int64)) for b in (1, 2, 4, 8)])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", range(8))
 @pytest.mark.parametrize("n", [8, 1 << 20, (1 << 20) + 8])
-@pytest.mark.parametrize("bits", [1, 2, 4])
-def test_unpack_codes_kernel_matches_plain(card, bits, n):
+@pytest.mark.parametrize("bits,bias", UNPACK_FORMS)
+def test_unpack_codes_kernel_matches_plain(card, bits, bias, n, offset):
+    """K2 on the card equals its plain version exactly, bare and fused,
+    for a packed slice that starts `offset` bytes past an aligned
+    address and for a ragged n (not a multiple of 16)."""
     from tidb_tpu_torch.copr.cuda import unpack_codes, unpack_codes_plain
 
     codes, packed = _packed(bits, n)
-    p = torch.from_numpy(packed).to(card)
+    buf = torch.zeros(packed.size + 16, dtype=torch.uint8, device=card)
+    p = buf[offset:offset + packed.size]
+    p.copy_(torch.from_numpy(packed))
+    b = None if bias is None else torch.tensor(bias[0], dtype=bias[1],
+                                                device=card)
     before = unpack_codes.launches
-    got = unpack_codes(p, bits, n)
+    got = unpack_codes(p, bits, n, bias=b)
     torch.cuda.synchronize()
     assert unpack_codes.launches == before + 1
-    assert torch.equal(got, unpack_codes_plain(p, bits, n))
-    np.testing.assert_array_equal(got.cpu().numpy(), codes)
+    assert got.dtype == (torch.uint8 if b is None else b.dtype)
+    assert torch.equal(got, unpack_codes_plain(p, bits, n, bias=b))
+    want = codes if b is None else codes.astype(np.int64) + bias[0]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.cuda

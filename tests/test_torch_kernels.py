@@ -31,7 +31,7 @@ def _codes(bits: int, n: int, seed: int = 3):
     return rng.integers(0, 1 << bits, n).astype(np.uint8)
 
 
-@pytest.mark.parametrize("n", [8, 1024, 65536])
+@pytest.mark.parametrize("n", [8, 1024, 65536, 16 * 1000 + 8])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 def test_unpack_codes_matches_pallas_kernel(bits, n):
     codes = _codes(bits, n)
@@ -59,17 +59,34 @@ def test_unpack_codes_rejects_bad_inputs():
         tcuda.unpack_codes(p, 3, 16)
     with pytest.raises(ValueError):
         tcuda.unpack_codes(torch.zeros(32, dtype=torch.uint8)[::2], 4, 32)
+    # a bias must be a 0-d int32 or int64 tensor on packed's device
+    with pytest.raises(TypeError):
+        tcuda.unpack_codes(p, 4, 32, bias=torch.tensor(1.5))
+    with pytest.raises(ValueError):
+        tcuda.unpack_codes(p, 4, 32,
+                           bias=torch.tensor([7], dtype=torch.int64))
+    with pytest.raises(ValueError):
+        tcuda.unpack_codes(p, 4, 32, bias=torch.tensor(
+            7, dtype=torch.int64, device="meta"))
     assert tcuda.unpack_codes.launches == 0
 
 
-@pytest.mark.parametrize("kind", ["range", "unique"])
+@pytest.mark.parametrize("kind", ["range", "unique", "range-i32",
+                                  "range-neg"])
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])
 def test_decode_packed_matches_reference(bits, kind):
+    """A range column decodes through K2's fused form (code + bias in one
+    call), a unique one through the bare K2 and a gather; both equal the
+    JAX package's decode, dtype included."""
     n = 4096
     codes = _codes(bits, n, seed=9)
     packed = pack_codes(codes, bits)
-    if kind == "range":
-        jarg, targ = jnp.int64(1234), torch.tensor(1234, dtype=torch.int64)
+    if kind.startswith("range"):
+        bias, dt = {"range": (1234, np.int64), "range-i32": (1234, np.int32),
+                    "range-neg": (-(1 << 40), np.int64)}[kind]
+        jarg = jnp.asarray(np.array(bias, dtype=dt))
+        targ = torch.from_numpy(np.array(bias, dtype=dt))
+        kind = "range"
     else:
         vals = np.sort(np.random.default_rng(1).random(1 << bits))
         jarg, targ = jnp.asarray(vals), torch.from_numpy(vals)
@@ -79,6 +96,7 @@ def test_decode_packed_matches_reference(bits, kind):
                                 kind=kind).numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+    assert tcuda.unpack_codes.launches == 0
 
 
 @pytest.mark.parametrize("bits", [1, 2, 4, 8])

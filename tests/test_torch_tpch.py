@@ -183,10 +183,12 @@ def test_cold_rows_match_reference(env, name, monkeypatch):
     plain_calls = []
     real_plain = tunpack.unpack_codes_plain
 
-    def spy(packed, bits, n):
+    def spy(packed, bits, n, bias=None):
         plain_calls.append(bits)
-        return real_plain(packed, bits, n)
+        fused.append(bias is not None)
+        return real_plain(packed, bits, n, bias)
 
+    fused = []
     monkeypatch.setattr(tunpack, "unpack_codes_plain", spy)
     sql = _queries()[name]
     m0 = REGISTRY.snapshot()
@@ -200,6 +202,7 @@ def test_cold_rows_match_reference(env, name, monkeypatch):
     assert m1.get("layout_cold_fallbacks_total", 0) == m0.get(
         "layout_cold_fallbacks_total", 0)
     assert plain_calls and set(plain_calls) <= {1, 2, 4}
+    assert all(fused)  # every cold column is a range column: fused decode
     if name == "q1":
         assert set(plain_calls) == {1, 2, 4}
     assert tunpack.unpack_codes.launches == 0  # CPU tensors: no kernel
@@ -244,7 +247,7 @@ def _arm_unpack(monkeypatch, env, exc):
     tlayout = env["tlayout"]
     tlayout.set_hot_cap_bytes(_cold_cap(tlayout, _lineitem(env["t"])))
 
-    def failing(packed, bits, n):
+    def failing(packed, bits, n, bias=None):
         raise exc
 
     monkeypatch.setattr(tcuda, "unpack_codes", failing)

@@ -9,7 +9,7 @@ the same function that the wrapper takes for CPU tensors.
 ``KERNELS`` lists them for the chip smoke run and PERF.md.
 """
 
-from .build import build_all, sources  # noqa: F401
+from .build import build_all, ptxas_report, sources  # noqa: F401
 from .remap import remap_codes, remap_codes_plain  # noqa: F401
 from .unpack import unpack_codes, unpack_codes_plain  # noqa: F401
 

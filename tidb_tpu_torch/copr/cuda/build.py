@@ -4,13 +4,16 @@ Each ``csrc/*.cu`` file is compiled on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas=-v \\
+         -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The output lives under ``build/kernels/`` at the repository root and is
 named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads what is there.  ``build_all``
 starts one nvcc per source, all at once, and waits for every one.  A
-failed build raises with nvcc's output.  Nothing is built at import.
+failed build raises with nvcc's output; a build's registers and spills
+per kernel (ptxas's report) are kept for ``ptxas_report``.  Nothing is
+built at import.
 """
 
 from __future__ import annotations
@@ -18,20 +21,22 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _mu = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOGS: Dict[str, str] = {}  # name -> nvcc's output of a build in this process
 
 
 def sources() -> Dict[str, Path]:
@@ -77,6 +82,7 @@ def build_all() -> Dict[str, float]:
         for name, (proc, tmp, out, t0) in todo.items():
             log, _ = proc.communicate()
             secs[name] = time.perf_counter() - t0
+            _LOGS[name] = log
             if proc.returncode != 0:
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
                 tmp.unlink(missing_ok=True)
@@ -102,3 +108,31 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = ctypes.CDLL(str(_target(src)))
         return lib
+
+
+def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function of `name`, from ptxas's report of a build made in this
+    process (empty when the library was already built).  Kernel names
+    are demangled with cu++filt where the toolkit has it."""
+    fns, cur = {}, None
+    for line in _LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            fns[cur] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur in fns:
+            fns[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in fns:
+            fns[cur][0] = int(m.group(1))
+    names = list(fns)
+    filt = os.path.join(os.path.dirname(_nvcc()), "cu++filt") if fns else ""
+    if fns and os.path.exists(filt):
+        out = subprocess.run([filt, *fns], capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(fns):
+            names = out.stdout.splitlines()
+    return [(nm, *fns[k]) for nm, k in zip(names, fns)]

@@ -34,7 +34,8 @@ the torch engine:
 
 - **Cold columns** (`decode_packed`): bit-packed dictionary codes of
   the cold tier unpack on the card with the hand-written CUDA kernel
-  (copr/cuda, K2 in PERF.md) and decode inside the same program.
+  (copr/cuda, K2 in PERF.md); a `range` column's decode (code + lo)
+  runs in the same kernel pass, a `unique` one's gather after it.
 """
 
 from __future__ import annotations
@@ -465,13 +466,15 @@ def decode_packed(packed, dict_arg, bits: int, n: int,
     `packed` holds n * bits / 8 bytes.  The unpack is the hand-written
     CUDA kernel K2 (`copr.cuda.unpack_codes`; its plain torch version on
     CPU tensors).  `dict_arg` is a device operand: for 'range'
-    dictionaries the scalar bias (decode = code + lo); for 'unique'
-    (float) dictionaries the value vector indexed by code."""
+    dictionaries the 0-d bias (decode = code + lo), which K2 adds in the
+    same pass, so a range column costs one launch and no further op; for
+    'unique' (float) dictionaries the value vector, indexed by the codes
+    K2 unpacks."""
     from .cuda import unpack_codes
 
-    code = unpack_codes(packed.reshape(-1), bits, n)
     if kind == "range":
-        return code.to(dict_arg.dtype) + dict_arg
+        return unpack_codes(packed.reshape(-1), bits, n, bias=dict_arg)
+    code = unpack_codes(packed.reshape(-1), bits, n)
     return dict_arg[code.to(torch.int64)]
 
 
