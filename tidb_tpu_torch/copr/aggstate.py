@@ -160,9 +160,13 @@ def partial_states(agg: AggDesc, arg_vecs: List[Vec], gidx: np.ndarray,
             for i in range(G):
                 data[i] = out[i] if out[i] is not None else ""
             return [Column(st, data, ovalid)]
-        ident = (
-            np.iinfo(np.int64).max if name == "min" else np.iinfo(np.int64).min
-        ) if st.np_dtype != np.float64 else (np.inf if name == "min" else -np.inf)
+        if st.np_dtype == np.float64:
+            ident = np.inf if name == "min" else -np.inf
+        else:
+            # the identity of the state's own width: an int64 extreme
+            # cast into an int32 (DATE) state would wrap to -1 / 0
+            info = np.iinfo(st.np_dtype)
+            ident = info.max if name == "min" else info.min
         acc = np.full(G, ident, dtype=st.np_dtype)
         masked = np.where(valid, v.data, ident)
         if name == "min":

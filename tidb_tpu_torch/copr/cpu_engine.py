@@ -16,6 +16,7 @@ from ..chunk import Chunk, Column
 from ..errors import ExecutorError
 from ..expr.expression import eval_bool_mask
 from ..expr.vec import Vec
+from ..types import TypeKind
 from . import aggstate
 from .ir import (
     DAG,
@@ -165,16 +166,21 @@ def sort_indices(order_by, chunk: Chunk) -> np.ndarray:
     for e, desc in reversed(list(order_by)):
         v = e.eval(chunk)
         data = v.data
+        valid = v.validity()
         if data.dtype == object:
-            # strings: rank via sorted unique values
-            uniq = sorted(set(str(x) for x in data))
-            rank = {s: i for i, s in enumerate(uniq)}
+            if e.ftype.kind == TypeKind.DECIMAL:
+                # wide decimals (e.g. DECIMAL(38, s) sums) hold Python
+                # ints: rank them by value, not by their digits
+                vals = [x if ok else 0 for x, ok in zip(data, valid)]
+            else:
+                # strings: rank via sorted unique values
+                vals = [str(x) for x in data]
+            rank = {s: i for i, s in enumerate(sorted(set(vals)))}
             data = np.fromiter(
-                (rank[str(x)] for x in data), dtype=np.int64, count=n
+                (rank[x] for x in vals), dtype=np.int64, count=n
             )
         else:
             data = data.astype(np.float64) if data.dtype == np.float64 else data
-        valid = v.validity()
         if desc:
             if data.dtype == np.float64:
                 key = np.where(valid, -data, np.inf)

@@ -79,7 +79,12 @@ def run_dag_on_region(storage, req: CopRequest, region, clipped) -> CopResponse:
 
 def _run_base_cpu(table, dag: DAG, start: int, end: int,
                   deleted, aux=None) -> List[Chunk]:
-    """CPU path over base rows, tile by tile (bounded memory)."""
+    """CPU path over base rows, tile by tile (bounded memory).  Each
+    call counts on `cop_region_cpu_runs_total`, so a route check can
+    tell a region the device served from one the host engine did."""
+    from ..metrics import REGISTRY
+
+    REGISTRY.inc("cop_region_cpu_runs_total")
     TILE = 1 << 18
     del_arr = np.asarray(sorted(deleted), dtype=np.int64)
     out: List[Chunk] = []

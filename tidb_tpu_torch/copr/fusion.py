@@ -14,8 +14,10 @@ the torch engine:
   (`RegionContext`) instead of owning its own dispatch.  The
   whole-table program (`parallel._build_mesh_core`) composes them, so
   scan→filter→project→agg→topN runs as one sequence of device ops whose
-  intermediates never leave the card.  With one card the cross-shard
-  merge of the JAX package's mesh (psum) is the identity.
+  intermediates never leave the card; the per-tile program
+  (`torch_engine._tile_core`) composes the same emitters.  With one card
+  the cross-shard merge of the JAX package's mesh (psum) is the
+  identity.
 
 - **Computed keys and dictionary predicates** (`build_key_remap`,
   `dict_pred_codes`): a function of one dictionary-encoded string
@@ -24,13 +26,13 @@ the torch engine:
   (`remap_codes`, the hand-written CUDA kernel K1) or test code-set
   membership.
 
-- **Fusion regions + fallback ladder** (`plan_regions`): a fragment
-  containing one unfusable operator does not demote the WHOLE fragment
-  to the CPU interpreter.  The splitter finds the longest
-  device-compilable executor prefix (the fused region) and peels the
-  remainder into a host tail the CPU engine evaluates over the region's
-  output chunks.  The chaos site `copr/fusion_split` forces splits at
-  arbitrary boundaries.
+- **Fusion regions + fallback ladder** (`plan_regions`,
+  `run_fragment`): a fragment containing one unfusable operator does
+  not demote the WHOLE fragment to the CPU interpreter.  The splitter
+  finds the longest device-compilable executor prefix (the fused
+  region) and peels the remainder into a host tail the CPU engine
+  evaluates over the region's output chunks.  The chaos site
+  `copr/fusion_split` forces splits at arbitrary boundaries.
 
 - **Cold columns** (`decode_packed`): bit-packed dictionary codes of
   the cold tier unpack on the card with the hand-written CUDA kernel
@@ -145,9 +147,10 @@ def dense_group_codes(ctx: RegionContext):
 
 def dense_agg_results(ctx: RegionContext, gidx):
     """The dense segment reductions for every aggregate in the region:
-    (gcount, results) in the layout `parallel._merge_mesh_agg` folds.
-    first_row emits the first GLOBAL row index per group (n_global when
-    the group is empty)."""
+    (gcount, results) in the layout `parallel._merge_mesh_agg` (or, per
+    tile, `torch_engine._merge_device_agg`) folds.  first_row emits the
+    first GLOBAL row index per group when the context has row offsets
+    (`gofs`), else the first tile-local index."""
     from .torch_engine import _to_state_dtype
 
     an = ctx.an
@@ -183,9 +186,15 @@ def dense_agg_results(ctx: RegionContext, gidx):
                 ops.masked_segment_count(gidx, mv, G),
             ))
         elif a.name == "first_row":
-            contrib = torch.where(mv, ctx.gofs,
-                                  torch.full_like(ctx.gofs, ctx.n_global))
-            results.append(ops.segment_min(contrib, gidx, G))
+            if ctx.gofs is not None:
+                # first GLOBAL row index (n_global when the group is
+                # empty)
+                contrib = torch.where(
+                    mv, ctx.gofs, torch.full_like(ctx.gofs, ctx.n_global))
+                results.append(ops.segment_min(contrib, gidx, G))
+            else:
+                # per tile: the tile-local index (TILE when empty)
+                results.append(ops.masked_segment_argfirst(gidx, mv, G))
     return gcount, results
 
 
@@ -495,7 +504,8 @@ def _lexsort(keys):
     return order
 
 
-def sort_group_segments(key_bits, key_flags, mask, cap):
+def sort_group_segments(key_bits, key_flags, mask, cap, order=None,
+                        diff=None):
     """Sort-based grouping into a static `cap`-slot budget.
 
     Sorts rows by (key bits..., null flags..., selected-first) as
@@ -503,7 +513,9 @@ def sort_group_segments(key_bits, key_flags, mask, cap):
     boundaries, and clips segment ids to [0, cap).  The 0/1 keys (the
     null flags and the unselected flag) pack into ONE int64 whose
     numeric order is their lexicographic order, so the sort costs one
-    stable pass per key plus one.
+    stable pass per key plus one.  Callers with a cheaper total order
+    (the fd-lookup single-int sort) pass their own `order` and boundary
+    `diff` and reuse only the segment layout.
 
     Returns (order, sm, skeys, seg, pos, n_uniq): the sort permutation,
     sorted selection mask, sorted key arrays, per-row segment ids, the
@@ -514,16 +526,18 @@ def sort_group_segments(key_bits, key_flags, mask, cap):
     waits for the card once."""
     n = mask.shape[0]
     dev = mask.device
-    flags = (~mask).to(torch.int64)
-    for f in reversed(key_flags):
-        flags = flags * 2 + f
-    order = _lexsort(list(key_bits) + [flags])
+    if order is None:
+        flags = (~mask).to(torch.int64)
+        for f in reversed(key_flags):
+            flags = flags * 2 + f
+        order = _lexsort(list(key_bits) + [flags])
     sm = mask[order]
     skeys = [k[order] for k in list(key_bits) + list(key_flags)]
-    diff = torch.zeros(n, dtype=torch.bool, device=dev)
-    diff[:1] = True
-    for k in skeys:
-        diff[1:] |= k[1:] != k[:-1]
+    if diff is None:
+        diff = torch.zeros(n, dtype=torch.bool, device=dev)
+        diff[:1] = True
+        for k in skeys:
+            diff[1:] |= k[1:] != k[:-1]
     boundary = sm & diff
     n_uniq = boundary.sum()
     seg = torch.clamp(torch.cumsum(boundary, 0) - 1, 0, cap - 1)
@@ -694,9 +708,33 @@ def run_tail(dag: DAG, tail: List, chunks, aux=None):
 
 def run_fragment(table, dag: DAG, start: int, end: int, deleted,
                  aux=None):
-    """Per-region device execution: the rung below the whole-table
-    program.  The per-tile device program it runs in the JAX package is
-    not part of the port yet, so every region declines with
-    DeviceUnsupported and the caller's CPU interpreter serves it (the
-    engine reports the scan as `tile-fanout`, never as `mesh`)."""
-    raise DeviceUnsupported("per-tile device program not ported")
+    """Per-region fused execution with the fallback ladder, the rung
+    below the whole-table program: run the largest region the per-tile
+    program (`torch_engine.run_base_torch`) accepts, stepping the cut
+    down one executor per DeviceUnsupported; the host tail runs over
+    the region's output.  Raises DeviceUnsupported only when no region
+    beyond the bare scan is device-eligible (the caller's CPU
+    interpreter is then cheaper than a device scan-only pass).  Any
+    other error of the device program reaches the caller."""
+    from .torch_engine import run_base_torch
+
+    cut: Optional[int] = None
+    while True:
+        plan = plan_regions(dag, table, max_cut=cut)
+        if plan.tail and len(plan.dag.executors) == 1:
+            # a device scan-only region reduces nothing; the CPU
+            # interpreter over host blocks is cheaper
+            raise DeviceUnsupported(
+                plan.split_reason or "no device-eligible fused region")
+        try:
+            chunks = run_base_torch(table, plan.dag, start, end, deleted,
+                                    aux=aux, an=plan.an)
+            break
+        except DeviceUnsupported:
+            if len(plan.dag.executors) == 1:
+                raise
+            cut = len(plan.dag.executors) - 1
+    if plan.tail:
+        note_split(plan.reason_label, type(plan.tail[0]).__name__)
+        chunks = run_tail(dag, plan.tail, chunks, aux)
+    return chunks

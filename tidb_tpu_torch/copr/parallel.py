@@ -20,17 +20,23 @@ executor/aggregate.go:101-169 the partial/final agg split).  Here:
   candidate rows and picks the final ones (`run_topn`).
 - Filter: the fused mask is computed on the card and only the selected
   row handles come back; the host gathers those rows.
+- Joins (`_apply_probes`): a runtime join filter (JoinProbeIR) ANDs a
+  sorted-key membership test into the row mask, and a broadcast lookup
+  join (JoinLookupIR) drops misses and gathers the matched build row's
+  payload columns, inside the same program as the scan and the partial
+  aggregation.  The build keys and payloads move to the card once per
+  query (`_join_operands`).
 
 This is the single-device path of the JAX package's mesh program: one
 card, so S = 1 and the cross-shard merge (psum) is the identity.  The
 mesh keeps its name on the SQL surface (`engine:mesh` in EXPLAIN
 ANALYZE) so both packages report the same route.  Multi-device meshes
-and join probes are not part of the port yet (ROADMAP): `_Analyzed`
-declines probes with DeviceUnsupported.
+are not part of the port yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from typing import List, Optional, Tuple
@@ -46,7 +52,7 @@ from ..store.kv import CopRequest
 from ..types import TypeKind
 from ..util_concurrency import make_lock
 from .device_health import DEVICE_HEALTH, attribute_devices, classify_failure
-from .ir import DAG
+from .ir import DAG, serialize_expr
 from .torch_eval import DeviceUnsupported
 from . import torch_engine as te
 from .torch_engine import _Analyzed, _fingerprint
@@ -292,12 +298,13 @@ MESH_CACHE = _MeshCache()
 
 
 def _hbm_bytes() -> int:
-    """Resident device bytes (hot cache + compressed cold tier) at this
-    instant — stamped on execute spans so a finished trace carries its
-    device-memory high-water mark."""
+    """Resident device bytes (hot cache + compressed cold tier + the
+    per-tile cache) at this instant — stamped on execute spans so a
+    finished trace carries its device-memory high-water mark."""
     from ..layout.coldtier import COLD_CACHE
 
-    return MESH_CACHE._c._bytes + COLD_CACHE._bytes
+    return (MESH_CACHE._c._bytes + COLD_CACHE._bytes
+            + te.DEVICE_CACHE._c._bytes)
 
 
 # a small shared pool overlaps the host tile build of one column with
@@ -448,13 +455,120 @@ def _all_true(n_pad: int):
 # ---------------------------------------------------------------------------
 
 def _key_device(d):
-    """Device-side canonical group key: float keys stay in VALUE domain
-    (-0.0 folded into 0.0), everything else widens to int64.  NaN keys
-    are excluded by contract (SQL NULLs are tracked separately)."""
+    """Device-side canonical join/group key: float keys stay in VALUE
+    domain (-0.0 folded into 0.0), everything else widens to int64.  NaN
+    keys are excluded by contract (SQL NULLs are tracked separately)."""
     if d.dtype.is_floating_point:
         return torch.where(d == 0.0, torch.zeros_like(d), d).to(
             torch.float64)
     return d.to(torch.int64)
+
+
+def _apply_probes(an: _Analyzed, cols, m, pargs, n_local: int):
+    """AND the runtime join-filter membership tests into the row mask
+    (sorted build keys, searchsorted probe), then run the broadcast
+    lookup JOINS: drop misses and extend the column environment at scan
+    width + j with the gathered payload of the matched build row.
+
+    `pargs` is `_join_operands`' tuple: per probe (keys, kn), per lookup
+    (keys, kn) and a (payload, valid) pair per payload column; keys are
+    padded past `kn` with a sentinel, which `pos < kn` keeps from
+    matching.  A NULL key never matches.  Returns (mask, the clipped
+    build-row position of every row per lookup)."""
+    from .torch_eval import compile_expr
+
+    for i, p in enumerate(an.probes):
+        keys, kn = pargs[2 * i], pargs[2 * i + 1]
+        d, v = compile_expr(p.key, cols, n_local)
+        k = _key_device(d)
+        pos = torch.searchsorted(keys, k)
+        pos_c = torch.clamp(pos, 0, keys.shape[0] - 1)
+        m = m & v & (pos < kn) & (keys[pos_c] == k)
+    off = 2 * len(an.probes)
+    out_idx = len(an.scan.columns)
+    lookup_pos = []
+    for lk in an.lookups:
+        keys, kn = pargs[off], pargs[off + 1]
+        off += 2
+        d, v = compile_expr(lk.key, cols, n_local)
+        k = d.to(torch.int64)
+        pos = torch.searchsorted(keys, k)
+        pos_c = torch.clamp(pos, 0, keys.shape[0] - 1)
+        hit = (pos < kn) & (keys[pos_c] == k) & v
+        m = m & hit
+        lookup_pos.append(pos_c)
+        for _ft in lk.payload_ftypes:
+            pl, pv = pargs[off], pargs[off + 1]
+            off += 2
+            # the matched build row's payload per probe row; misses are
+            # dead rows under m and their payload is NULL
+            cols[out_idx] = (pl[pos_c], hit & pv[pos_c])
+            out_idx += 1
+    return m, lookup_pos
+
+
+def _pow2_pad(k: int) -> int:
+    """The padded length of a build-key operand: a power of 2, at least
+    16, so programs are shared across build sizes of one bucket."""
+    kpad = 16
+    while kpad < k:
+        kpad <<= 1
+    return kpad
+
+
+def _join_operands(req: CopRequest, an: _Analyzed, dev):
+    """The probes' and lookups' runtime operands on the card, read from
+    `req.aux` once per query (every dispatch chunk shares them):
+    (pargs, kpads), or None when a lookup key is a float (the caller
+    declines the fused program).  A missing operand raises."""
+    from ..errors import ExecutorError
+
+    aux = req.aux or {}
+    pargs: list = []
+    kpads: List[int] = []
+
+    def keys_operand(arr, dtype, sentinel, k):
+        kpad = _pow2_pad(k)
+        padded = np.full(kpad, sentinel, dtype=dtype)
+        padded[:k] = arr
+        pargs.append(to_device(padded, dev))
+        # kn stays on the card: reading it back would cost a sync
+        pargs.append(torch.tensor(k, dtype=torch.int64, device=dev))
+        kpads.append(kpad)
+        return kpad
+
+    for p in an.probes:
+        arr = aux.get(f"probe_keys_{p.filter_id}")
+        if arr is None:
+            raise ExecutorError(f"missing runtime probe keys {p.filter_id}")
+        if p.key.ftype.kind == TypeKind.FLOAT:
+            # aux carries canonical int64 BIT patterns
+            # (ir.key_bits_int64); the card compares float keys by
+            # value, so the bits become values and sort again (bit order
+            # is not value order for negatives)
+            keys_operand(np.sort(arr.view(np.float64)), np.float64,
+                         np.inf, len(arr))
+        else:
+            keys_operand(arr, np.int64, np.iinfo(np.int64).max, len(arr))
+    for lk in an.lookups:
+        arr = aux.get(f"probe_keys_{lk.filter_id}")
+        payload = aux.get(f"payload_{lk.filter_id}")
+        pvalids = aux.get(f"payload_valid_{lk.filter_id}")
+        if arr is None or payload is None:
+            raise ExecutorError(f"missing join lookup aux {lk.filter_id}")
+        if lk.key.ftype.kind == TypeKind.FLOAT:
+            return None
+        k = len(arr)
+        kpad = keys_operand(arr, np.int64, np.iinfo(np.int64).max, k)
+        for j, ft in enumerate(lk.payload_ftypes):
+            pl = np.zeros(kpad, dtype=_full_dtype(ft.kind))
+            pl[:k] = payload[j]
+            pv = np.zeros(kpad, dtype=np.bool_)
+            src_v = pvalids[j] if pvalids is not None else None
+            pv[:k] = True if src_v is None else src_v
+            pargs.append(to_device(pl, dev))
+            pargs.append(to_device(pv, dev))
+    return tuple(pargs), kpads
 
 
 class MeshAggOverflow(Exception):
@@ -542,11 +656,12 @@ def _mesh_masks(del_mask, bounds, lo: int, hi: int):
 def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
                      n_global: int, col_layout=None):
     """The fused whole-fragment program for one fragment shape:
-    core(datas, valids, del_mask, bounds, lvals, params).
+    core(datas, valids, del_mask, bounds, lvals, pargs, params).
 
     It evaluates the rows of one dispatch's span (`_span_of(bounds)`),
     builds the union row mask over the range slots, and composes the
-    fusion phase emitters (copr/fusion.py) — selection, then dense
+    fusion phase emitters (copr/fusion.py) — selection, the join probes
+    and lookups (`_apply_probes` over the `pargs` operands), then dense
     group codes and aggregation for `agg`, the top-k for `topn`, or just
     the mask for `filter` — so the fragment is one sequence of device
     ops.  Returns (gcount, results) tensors for dense `agg`, (row
@@ -558,7 +673,7 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
         return _build_sort_agg_core(an, col_order, n_global,
                                     col_layout=col_layout)
 
-    def region_ctx(datas, valids, del_mask, bounds, lvals, params):
+    def region_ctx(datas, valids, del_mask, bounds, lvals, pargs, params):
         lo, hi = _span_of(bounds)
         cols = _cols_env(an, col_order, datas, valids, lo, hi, params,
                          col_layout=col_layout, lvals=lvals)
@@ -572,12 +687,13 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
                                    mask=row_mask, gofs=gofs,
                                    n_global=n_global)
         fusion.selection_mask(ctx)
+        ctx.mask, _pos = _apply_probes(an, cols, ctx.mask, pargs, hi - lo)
         return lo, ctx
 
     if kind == "agg":
-        def core(datas, valids, del_mask, bounds, lvals, params):
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
             _lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                  params)
+                                  pargs, params)
             gidx = fusion.dense_group_codes(ctx)
             return fusion.dense_agg_results(ctx, gidx)
     elif kind == "topn":
@@ -586,17 +702,17 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
         desc = fusion.topn_desc(an)
         budget = topn_budget(an.topn.limit)
 
-        def core(datas, valids, del_mask, bounds, lvals, params):
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
             lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                 params)
+                                 pargs, params)
             key = fusion.topn_key(ctx)
             idx, cnt = ops.masked_top_k(key, ctx.mask,
                                         min(budget, ctx.n), desc)
             return idx + lo, cnt
     else:  # filter: the fused selection mask
-        def core(datas, valids, del_mask, bounds, lvals, params):
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
             lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                 params)
+                                 pargs, params)
             return lo, ctx.mask
     return core
 
@@ -612,11 +728,34 @@ def _remap_source(col_order, datas, col_layout, cols, idx: int, lo: int,
     return datas[j].reshape(-1)[lo:hi]
 
 
+def _fd_sort_lookup(an: _Analyzed) -> bool:
+    """True when the single unique-key lookup FUNCTIONALLY DETERMINES
+    every group key (the TPC-H Q3 shape: GROUP BY join key, payload...):
+    the matched build-row index then serves as the one sort key, so the
+    sort is a single int sort instead of one per key column plus the
+    flags."""
+    from ..expr.expression import ColumnExpr
+
+    if len(an.lookups) != 1 or an.probes or an.agg is None:
+        return False
+    lk = an.lookups[0]
+    key_ser = json.dumps(serialize_expr(lk.key), sort_keys=True)
+    width = len(an.scan.columns)
+    lo, hi = width, width + len(lk.payload_ftypes)
+    for g in an.agg.group_by:
+        if isinstance(g, ColumnExpr) and lo <= g.index < hi:
+            continue  # payload column: fixed per matched build row
+        if json.dumps(serialize_expr(g), sort_keys=True) == key_ser:
+            continue  # the join key itself (unique per build row)
+        return False
+    return True
+
+
 def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
                          n_global: int, col_layout=None):
     """Sort-based partial aggregation for arbitrary group keys (any NDV,
     float, NULLable, computed keys): core(datas, valids, del_mask,
-    bounds, lvals, params) -> (n_uniq, keys, results, OUT).
+    bounds, lvals, pargs, params) -> (n_uniq, keys, results, OUT).
 
     Per dispatch: sort rows by (key bits..., null flags...,
     selected-first), mark group boundaries, segment-reduce into a
@@ -634,8 +773,9 @@ def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
     remaps = an.key_remaps
     out_budget = _agg_out_budget()
     needs_gofs = any(a.name == "first_row" for a in agg_ir.aggs)
+    fd_lookup = _fd_sort_lookup(an)
 
-    def core(datas, valids, del_mask, bounds, lvals, params):
+    def core(datas, valids, del_mask, bounds, lvals, pargs, params):
         lo, hi = _span_of(bounds)
         n_local = hi - lo
         out = min(out_budget, n_local)
@@ -645,6 +785,7 @@ def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
         ctx = fusion.RegionContext(an=an, cols=cols, n=n_local, mask=m,
                                    n_global=n_global)
         m = fusion.selection_mask(ctx)
+        m, lookup_pos = _apply_probes(an, cols, m, pargs, n_local)
         key_bits, key_flags = [], []
         rslot = 0
         for gi, g in enumerate(agg_ir.group_by):
@@ -665,8 +806,19 @@ def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
             k = _key_device(d)
             key_bits.append(torch.where(v, k, torch.zeros_like(k)))
             key_flags.append(v.to(torch.int64))
+        order = diff = None
+        if fd_lookup:
+            # every group key is determined by the matched build row:
+            # one stable sort of its index replaces the keyed sorts;
+            # unselected rows sort last, at the padded build length
+            kpad = pargs[0].shape[0]
+            sortk = torch.where(m, lookup_pos[0],
+                                torch.full_like(lookup_pos[0], kpad))
+            ssort, order = torch.sort(sortk, stable=True)
+            diff = torch.ones(n_local, dtype=torch.bool, device=m.device)
+            diff[1:] = ssort[1:] != ssort[:-1]
         order, sm, skeys, seg, pos, n_uniq = fusion.sort_group_segments(
-            key_bits, key_flags, m, out)
+            key_bits, key_flags, m, out, order=order, diff=diff)
         out_keys = [k[pos] for k in skeys]
         sgofs = None
         if needs_gofs:
@@ -690,7 +842,7 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
     """The fused program plus its readback, traced as one
     `copr.device.execute` span and one `copr.readback` span.
 
-    fn(datas, valids, del_mask, bounds, lvals, params) returns
+    fn(datas, valids, del_mask, bounds, lvals, pargs, params) returns
     (gcount, [(tag, result), ...]) as numpy for `agg`, and the selected
     global row handles (int64 numpy, ascending) for `filter`."""
     from ..trace import span
@@ -702,10 +854,10 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
     if kind == "agg":
         tags = te._agg_tags(an.agg)
 
-        def wrapped(datas, valids, del_mask, bounds, lvals, params):
+        def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
                 gcount, results = core(datas, valids, del_mask, bounds,
-                                       lvals, params)
+                                       lvals, pargs, params)
             with span("copr.readback") as sp:
                 gcount = _readback(gcount)
                 results = [_readback(r) for r in results]
@@ -717,10 +869,10 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
         return wrapped
 
     if kind == "topn":
-        def wrapped(datas, valids, del_mask, bounds, lvals, params):
+        def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
                 handles, cnt = core(datas, valids, del_mask, bounds, lvals,
-                                    params)
+                                    pargs, params)
             with span("copr.readback") as sp:
                 c = int(cnt)
                 out = handles[:c].cpu().numpy()
@@ -729,9 +881,10 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
         return wrapped
 
-    def wrapped(datas, valids, del_mask, bounds, lvals, params):
+    def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-            lo, mask = core(datas, valids, del_mask, bounds, lvals, params)
+            lo, mask = core(datas, valids, del_mask, bounds, lvals, pargs,
+                            params)
             handles = torch.nonzero(mask).reshape(-1) + lo
         with span("copr.readback") as sp:
             out = handles.cpu().numpy()
@@ -749,10 +902,10 @@ def _wrap_sort_agg(an: _Analyzed, core):
 
     tags = te._agg_tags(an.agg)
 
-    def wrapped(datas, valids, del_mask, bounds, lvals, params):
+    def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
             n_uniq, keys, results, out = core(datas, valids, del_mask,
-                                              bounds, lvals, params)
+                                              bounds, lvals, pargs, params)
         with span("copr.readback") as sp:
             k = int(n_uniq)
             if k > out:
@@ -896,12 +1049,14 @@ def _handle_mesh_failure(req: CopRequest, exc: BaseException,
         DEVICE_HEALTH.record_error(did, exc)
         MESH_CACHE.evict_device(did)
         coldtier.evict_device(did)
+        te.DEVICE_CACHE.evict_device(did)
         if _ONES_CACHE is not None:
             _ONES_CACHE.evict_if(lambda k, d=did: d in k[0])
     if kind == "oom":
         REGISTRY.inc("mesh_hbm_oom_total")
         MESH_CACHE.clear()
         coldtier.clear()
+        te.DEVICE_CACHE.clear()
         if _ONES_CACHE is not None:
             _ONES_CACHE.clear()
         if torch.cuda.is_available():
@@ -980,8 +1135,9 @@ def _guarded_stream(storage, req: CopRequest, tid: int, gen, attempts: int):
 
 def _observe_fragment(table, an: _Analyzed):
     """Feed the fragment's column USAGE to the layout autotuner: which
-    store columns serve as filter inputs, group keys and aggregate
-    arguments (the signal the residency priority weighs)."""
+    store columns serve as filter inputs, group keys, aggregate
+    arguments and probe keys (the signal the residency priority
+    weighs)."""
     from ..layout import LAYOUT, layout_enabled
 
     if not layout_enabled():
@@ -997,6 +1153,8 @@ def _observe_fragment(table, an: _Analyzed):
                 LAYOUT.observe(table, an.scan.columns[i], kind)
 
     obs(an.conds, "filter")
+    obs([p.key for p in an.probes] + [lk.key for lk in an.lookups],
+        "probe_key")
     if an.agg is not None:
         obs(an.agg.group_by, "agg_key")
         obs([x for a in an.agg.aggs for x in a.args], "agg_arg")
@@ -1056,6 +1214,13 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
     n_global = n_pad * te.TILE
     col_order = an.needed_cols()
     _observe_fragment(table, an)
+    # the join operands: sorted build keys (and lookup payloads), padded
+    # to a pow2 bucket so programs are shared across build sizes
+    joins = _join_operands(req, an, dev)
+    if joins is None:
+        req.mesh_reject_reason = "float lookup key"
+        return None
+    pargs, kpads = joins
 
     # column tensors load BEFORE the program lookup: the program is
     # specialized on each column's wire dtype / null pattern AND its
@@ -1092,7 +1257,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
 
     fp = (_fingerprint(an, kind)
           + f"|mesh S=1 n_pad={n_pad} devs={devs} cols={col_order} "
-          + f"wire={wire_sig}"
+          + f"kpads={kpads} wire={wire_sig}"
           + (f"|hp={len(hoisted[0])},{len(hoisted[1])}"
              if hoisted is not None else ""))
     if kind == "agg" and an.agg_mode == "sort":
@@ -1141,7 +1306,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
     if kind == "filter":
         return _stream_filter(req, table, an, fn, datas, valids, del_mask,
                               inserted, params, devs=devs, bounds=bounds,
-                              tail=tail, dag=dag, lvals=lvals,
+                              tail=tail, dag=dag, lvals=lvals, pargs=pargs,
                               split_label=plan.reason_label)
 
     from ..lifecycle import dispatch_admission, scope_check
@@ -1181,7 +1346,8 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
                 # admission re-acquired per chunk: a depleted resource
                 # group yields the device at every chunk boundary
                 with dispatch_admission(DISPATCH_LOCK):
-                    out = fn(datas, valids, del_mask, sub, lvals, params)
+                    out = fn(datas, valids, del_mask, sub, lvals, pargs,
+                             params)
             observe_chunk(kind, (time.perf_counter() - t0) * 1000.0, rows)
             return out
 
@@ -1243,7 +1409,7 @@ STREAM_ROWS = 1 << 16
 
 def _stream_filter(req, table, an, fn, datas, valids, del_mask, inserted,
                    params=None, devs=(), bounds=(), tail=None, dag=None,
-                   lvals=(), split_label=None):
+                   lvals=(), pargs=(), split_label=None):
     """Generator over a filter's result chunks: the fused mask runs on
     the card per dispatch chunk, then STREAM_ROWS-sized host gathers on
     demand (distsql/stream.go:33-124).  When the fusion splitter peeled
@@ -1279,7 +1445,7 @@ def _stream_filter(req, table, an, fn, datas, valids, del_mask, inserted,
             with span("copr.chunk", kind="filter", chunk=ci, rows=crows):
                 with dispatch_admission(DISPATCH_LOCK):
                     handles = fn(datas, valids, del_mask, sub, lvals,
-                                 params)
+                                 pargs, params)
             observe_chunk("filter", (time.perf_counter() - t0) * 1000.0,
                           crows)
             if remaining is not None:

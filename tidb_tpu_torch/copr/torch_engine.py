@@ -1,24 +1,28 @@
-"""Device engine pieces shared by the fused mesh program (torch).
+"""Device engine pieces shared by the fused programs (torch).
 
-The port of the analysis half of the JAX package's per-tile engine: DAG
-analysis (`_Analyzed`), dictionary rewrites of string constants, the
-program fingerprint, the decimal state widening, and the host merge of
-dense aggregation results.  The per-tile program itself (`run_base_jax`
-in the JAX package) is not part of the port yet: the per-region rung
-declines with DeviceUnsupported and its regions run on the CPU engine,
-while the whole-table fused program (copr/parallel.py) carries the
-device path.
+The port of the JAX package's per-tile engine (`jax_engine.py`): DAG
+analysis (`_Analyzed`, runtime join probes and broadcast lookup joins
+included), dictionary rewrites of string constants, the program
+fingerprint, the decimal state widening, the host merge of dense
+aggregation results, and the per-tile program (`run_base_torch`): the
+per-region rung that runs a region's rows tile by tile on the card when
+the whole-table program (copr/parallel.py) declines the request, e.g.
+one with more disjoint ranges than its range slots.
 
-Anything the port does not run on the device raises DeviceUnsupported
-and the caller falls back to the CPU engine (or, inside a fused region,
-peels the executor into a host tail): today the runtime join probes and
-lookups.
+- Tiles of immutable base blocks are cached on the card, keyed by
+  (store, base version, column, tile, device) in `DEVICE_CACHE`, padded
+  to TILE rows, so a repeated scan moves no column over the link.
+- The row mask is built on the card from the region's [lo, hi) clip
+  within the tile and the tile's MVCC deletions.
+- Anything the device path cannot run raises DeviceUnsupported: the
+  fusion ladder (copr/fusion.run_fragment) then peels the executor into
+  a host tail, or the CPU engine serves the region.
 """
 
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -240,7 +244,89 @@ def _flip(op: str) -> str:
 
 
 # ---------------------------------------------------------------------------
-# device block cache
+# device tile cache
+# ---------------------------------------------------------------------------
+
+
+class _DeviceCache:
+    """(store_uid, base_version, store_ci, tile_idx, device) -> (data,
+    valid) TILE-row tensors on the card.  Bounded by its byte cap and
+    counted in the device bytes the engine reports
+    (`parallel._hbm_bytes`), beside the whole-table column cache."""
+
+    def __init__(self, capacity_bytes: int = 8 << 30):
+        from .cache import ByteCapCache
+
+        self._c = ByteCapCache(capacity_bytes, name="tile")
+
+    def get_tile(self, table, store_ci: int, tile_idx: int, start: int,
+                 end: int, device: torch.device):
+        key = (table.store_uid, table.base_version, store_ci, tile_idx,
+               str(device))
+
+        def load():
+            from ..trace import span
+            from .parallel import to_device
+
+            with span("copr.transfer", col=store_ci, tile=tile_idx) as sp:
+                data, valid = _gather_tile(table, store_ci, start, end)
+                sp.set(bytes=data.nbytes + valid.nbytes, device=str(device))
+                return to_device(data, device), to_device(valid, device)
+
+        return self._c.get_or_load(key, load)
+
+    def clear(self):
+        """Drop every resident tile (device-OOM recovery path)."""
+        self._c.clear()
+
+    def evict_device(self, device_id: int) -> int:
+        """Drop every tile placed on this device."""
+        name = "cpu" if device_id < 0 else f"cuda:{device_id}"
+        return self._c.evict_if(lambda k: k[4] == name)
+
+
+def _gather_tile(table, store_ci: int, start: int, end: int):
+    """Host side: concatenate the block slices of rows [start, end) at
+    the dtype the expression compiler expects, padded to TILE."""
+    meta = table.cols[store_ci]
+    dt = np.int32 if meta.ftype.kind in (TypeKind.DATE, TypeKind.STRING) else (
+        np.float64 if meta.ftype.kind == TypeKind.FLOAT else np.int64
+    )
+    parts, vparts = [], []
+    for _, arrs, vals in table.iter_base_blocks([store_ci], start, end):
+        parts.append(arrs[0])
+        v = vals[0]
+        vparts.append(v if v is not None else np.ones(len(arrs[0]), np.bool_))
+    if parts:
+        data = np.concatenate(parts).astype(dt, copy=False)
+        valid = np.concatenate(vparts)
+    else:
+        data = np.zeros(0, dtype=dt)
+        valid = np.zeros(0, dtype=np.bool_)
+    n = len(data)
+    if n < TILE:
+        data = np.pad(data, (0, TILE - n))
+        valid = np.pad(valid, (0, TILE - n))
+    return data, valid
+
+
+DEVICE_CACHE = _DeviceCache()
+
+_ALL_TRUE: dict = {}
+
+
+def _all_true(device: torch.device) -> torch.Tensor:
+    """The resident all-true TILE mask of one device, made once."""
+    key = (str(device), TILE)
+    m = _ALL_TRUE.get(key)
+    if m is None:
+        m = _ALL_TRUE.setdefault(
+            key, torch.ones(TILE, dtype=torch.bool, device=device))
+    return m
+
+
+# ---------------------------------------------------------------------------
+# DAG analysis
 # ---------------------------------------------------------------------------
 
 
@@ -248,6 +334,8 @@ class _Analyzed:
     def __init__(self, dag: DAG, table):
         self.scan: TableScanIR = dag.scan
         self.selections: List[SelectionIR] = []
+        self.probes: List[JoinProbeIR] = []
+        self.lookups: List[JoinLookupIR] = []
         self.projection: Optional[ProjectionIR] = None
         self.agg: Optional[AggregationIR] = None
         self.topn: Optional[TopNIR] = None
@@ -258,10 +346,15 @@ class _Analyzed:
                     raise DeviceUnsupported(
                         "selection after agg/topn on device")
                 self.selections.append(ex)
-            elif isinstance(ex, (JoinProbeIR, JoinLookupIR)):
-                # runtime join filters and broadcast lookup joins on the
-                # device are not part of the port yet
-                raise DeviceUnsupported("device join probe not ported")
+            elif isinstance(ex, JoinProbeIR):
+                if self.agg or self.topn or self.projection:
+                    raise DeviceUnsupported(
+                        "join probe after agg/topn on device")
+                self.probes.append(ex)
+            elif isinstance(ex, JoinLookupIR):
+                if self.agg or self.topn or self.projection:
+                    raise DeviceUnsupported("join lookup after agg/topn")
+                self.lookups.append(ex)
             elif isinstance(ex, ProjectionIR):
                 if self.agg or self.topn:
                     raise DeviceUnsupported(
@@ -292,7 +385,13 @@ class _Analyzed:
         }
         all_exprs: List[Expression] = [
             c for s in self.selections for c in s.conditions
-        ]
+        ] + [p.key for p in self.probes] + [lk.key for lk in self.lookups]
+        if self.lookups and self.agg is None:
+            # the filter/topn readback paths gather rows from the TABLE,
+            # which has no payload columns: a lookup runs on the device
+            # only under a partial aggregation (the only shape the
+            # planner emits; the per-region rung handles the rest)
+            raise DeviceUnsupported("join lookup without device aggregation")
         if self.projection is not None:
             all_exprs += self.projection.exprs
         if self.topn is not None:
@@ -345,12 +444,22 @@ class _Analyzed:
         #: packed lexicographic multi-column TopN spec, else None
         self.topn_pack = None
         if self.agg is not None:
+            width = len(self.scan.columns)
             for a in self.agg.aggs:
                 if a.distinct:
                     raise DeviceUnsupported("distinct agg on device")
                 if a.name not in ("count", "sum", "avg", "min", "max",
                                   "first_row"):
                     raise DeviceUnsupported(f"device agg {a.name}")
+                if a.name == "first_row" and self.lookups:
+                    refs: set = set()
+                    for x in a.args:
+                        x.collect_columns(refs)
+                    if any(i >= width for i in refs):
+                        # first_row partials resolve through a TABLE
+                        # gather, which has no payload columns
+                        raise DeviceUnsupported(
+                            "first_row over join payload")
             try:
                 self._analyze_dense_keys(table)
             except DeviceUnsupported:
@@ -454,10 +563,16 @@ class _Analyzed:
         self.num_groups = max(g, 1)
 
     def needed_cols(self) -> List[int]:
-        """Scan-output col indices the device actually needs."""
+        """Scan-output col indices the device actually needs (payload
+        indices of join lookups arrive as operands, not scanned columns,
+        and are dropped)."""
         need: set = set()
         for c in self.conds:
             c.collect_columns(need)
+        for p in self.probes:
+            p.key.collect_columns(need)
+        for lk in self.lookups:
+            lk.key.collect_columns(need)
         if self.agg is not None:
             need.update(self.group_cols)
             for k in self.agg.group_by:
@@ -483,6 +598,12 @@ def _fingerprint(an: _Analyzed, kind: str) -> str:
     payload = {
         "kind": kind,
         "conds": [serialize_expr(c) for c in an.conds],
+        "probes": [[serialize_expr(p.key), p.filter_id] for p in an.probes],
+        "lookups": [
+            [serialize_expr(lk.key), lk.filter_id,
+             [int(f.kind) for f in lk.payload_ftypes]]
+            for lk in an.lookups
+        ],
         "proj": [serialize_expr(p) for p in an.proj_exprs]
         if an.proj_exprs is not None
         else None,
@@ -558,7 +679,381 @@ def _to_state_dtype(d, src_ft: FieldType, state_ft: FieldType):
 
 
 # ---------------------------------------------------------------------------
+# the per-tile program
+# ---------------------------------------------------------------------------
+
+from .cache import ProgramCache  # noqa: E402
+
+_COMPILED = ProgramCache("tile")
+
+
+def _tile_core(an: _Analyzed, kind: str, col_order: List[int],
+               with_params: bool = False):
+    """The per-tile program, composed from the fusion phase emitters
+    (copr/fusion.py) so every pushed phase (filter, project, agg, topN)
+    emits into one shared context.
+
+    Signature: fn(datas, valids, lo, hi, del_mask[, pi, pf]): the pi/pf
+    trailing tensors (hoisted predicate parameters, serving/params.py)
+    are passed only when `with_params`.  Returns (mask, projection
+    outputs or None) for `filter`, (gcount, results) for dense `agg` and
+    (tile-local row indices, count) for `topn`."""
+    from . import fusion
+
+    if an.lookups:
+        # the broadcast lookup join runs in the whole-table program only;
+        # the per-region rung hands these regions to the CPU engine
+        raise DeviceUnsupported("join lookup needs the mesh engine")
+    n = TILE
+
+    def region_ctx(datas, valids, lo, hi, del_mask, params):
+        env = {
+            ci: (datas[j], valids[j]) for j, ci in enumerate(col_order)
+        }
+        if with_params and params:
+            env["__params__"] = params
+        ar = torch.arange(n, dtype=torch.int64, device=del_mask.device)
+        ctx = fusion.RegionContext(
+            an=an, cols=env, n=n,
+            mask=(ar >= lo) & (ar < hi) & del_mask)
+        fusion.selection_mask(ctx)
+        return ctx
+
+    if kind == "filter":
+        def fn(datas, valids, lo, hi, del_mask, *params):
+            ctx = region_ctx(datas, valids, lo, hi, del_mask, params)
+            outs = None
+            if an.proj_exprs is not None:
+                outs = fusion.projection_outputs(ctx)
+            return ctx.mask, outs
+
+        return fn
+
+    if kind == "agg":
+        def fn(datas, valids, lo, hi, del_mask, *params):
+            ctx = region_ctx(datas, valids, lo, hi, del_mask, params)
+            gidx = fusion.dense_group_codes(ctx)
+            return fusion.dense_agg_results(ctx, gidx)
+
+        return fn
+
+    if kind == "topn":
+        from .. import ops
+        from ..serving import topn_budget
+
+        desc = fusion.topn_desc(an)
+        k = min(topn_budget(an.topn.limit), TILE)
+
+        def fn(datas, valids, lo, hi, del_mask, *params):
+            ctx = region_ctx(datas, valids, lo, hi, del_mask, params)
+            key = fusion.topn_key(ctx)
+            return ops.masked_top_k(key, ctx.mask, k, desc)
+
+        return fn
+
+    raise DeviceUnsupported(kind)
+
+
+def _build_tile_fn(an: _Analyzed, kind: str, col_order: List[int],
+                   with_params: bool = False):
+    """The per-tile program for one fragment shape:
+    fn(datas, valids, lo, hi, del_mask[, pi, pf]).
+
+    The row mask is built ON THE CARD from the [lo, hi) clip of the
+    region within the tile, ANDed with del_mask (a resident all-true
+    tensor unless the tile has MVCC-deleted rows), so a steady query
+    moves no scan data over the link: only the results come back.  For
+    `agg` the results are tagged with their `_agg_tags` layout."""
+    core = _tile_core(an, kind, col_order, with_params=with_params)
+    if kind != "agg":
+        return core
+    tags = _agg_tags(an.agg)
+
+    def wrapped(datas, valids, lo, hi, del_mask, *params):
+        gcount, results = core(datas, valids, lo, hi, del_mask, *params)
+        return gcount, list(zip(tags, results))
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
 # engine entry
+# ---------------------------------------------------------------------------
+
+
+def _tile_devices():
+    """The cards the per-tile path may place work on: the visible set
+    minus tripped breakers; an all-tripped set falls back to the full
+    list.  Tiles go round-robin over them (one card today)."""
+    from .. import ops
+    from .device_health import DEVICE_HEALTH
+    from .parallel import _Card
+
+    cards = [_Card(d) for d in ops.device_ids()]
+    healthy = DEVICE_HEALTH.select_devices(cards)
+    return healthy if healthy else cards
+
+
+def _card_device(card) -> torch.device:
+    from .. import ops
+
+    dev = ops.device()
+    return torch.device("cuda", card.id) if dev.type == "cuda" else dev
+
+
+def run_base_torch(table, dag: DAG, start: int, end: int,
+                   deleted: Sequence[int], aux=None, an=None) -> List[Chunk]:
+    """Execute `dag` over base rows [start, end) on the card, tile by
+    tile; returns result chunks (partial-agg rows, topn rows, or
+    filtered rows).  `an` lets the fusion ladder pass its analysis in.
+    Raises DeviceUnsupported for the shapes only the whole-table program
+    runs (sort-mode aggregation, join probes and lookups)."""
+    if an is None:
+        an = _Analyzed(dag, table)
+    if an.agg is not None and an.agg_mode != "dense":
+        # sort-based grouping needs the whole-table program
+        # (copr/parallel.py); the per-region rung hands these to the CPU
+        # engine
+        raise DeviceUnsupported("sort-mode agg runs on the mesh path only")
+    if an.probes:
+        # runtime join filters run in the whole-table program; the
+        # per-region rung evaluates them on the CPU engine
+        raise DeviceUnsupported("join probe runs on the mesh path only")
+    kind = "agg" if an.agg is not None else (
+        "topn" if an.topn is not None else "filter"
+    )
+    import time as _time
+
+    from ..lifecycle import chunk_admission, scope_check
+    from ..serving import hoist_conds
+    from ..store.fault import FAILPOINTS
+    from ..trace import span
+    from .chunking import observe_chunk
+    from .device_health import DEVICE_HEALTH
+    from .parallel import _hbm_bytes, to_device
+
+    col_order = an.needed_cols()
+    # predicate constants hoisted into runtime parameter slots: the
+    # fingerprint serializes SLOTS, so parameter-different queries of the
+    # same shape share one program
+    hoisted = hoist_conds(an)
+    fp = (_fingerprint(an, kind) + f"|cols={col_order}|tile={TILE}"
+          + (f"|hp={len(hoisted[0])},{len(hoisted[1])}"
+             if hoisted is not None else ""))
+    fn = _COMPILED.get(fp)
+    built_now = fn is None
+    if fn is None:
+        fn = _build_tile_fn(an, kind, col_order,
+                            with_params=hoisted is not None)
+        _COMPILED.put(fp, fn)
+    else:
+        # zero-duration marker: the DAG fingerprint hit the program cache
+        with span("copr.compile", cache="hit", kind=kind):
+            pass
+
+    del_arr = np.fromiter(sorted(deleted), dtype=np.int64,
+                          count=len(deleted))
+    out_chunks: List[Chunk] = []
+    agg_accum = None
+    topn_parts: List[Chunk] = []
+    remaining_limit = an.limit
+    devices = _tile_devices()
+    used_ids: set = set()
+    pextra: dict = {}
+    for tile_start in range((start // TILE) * TILE, end, TILE):
+        # host-side cancellation seam: KILL and deadlines land between
+        # tile dispatches
+        scope_check()
+        t0 = max(tile_start, start)
+        t1 = min(tile_start + TILE, end)
+        if t0 >= t1:
+            continue
+        tile_idx = tile_start // TILE
+        # the tile loop IS the chunk sequence of this rung: each tile
+        # re-acquires resource-group admission and feeds the same chunk
+        # telemetry the whole-table dispatcher does
+        FAILPOINTS.hit("copr/chunk_dispatch", kind="tile", chunk=tile_idx,
+                       total=0, start=t0, end=t1)
+        # tiles are always the aligned cached tensors; the region clip
+        # [t0, t1) and the deletions become the mask
+        card = devices[tile_idx % len(devices)]
+        dev = _card_device(card)
+        used_ids.add(card.id)
+        datas, valids = [], []
+        for ci in col_order:
+            d, v = DEVICE_CACHE.get_tile(
+                table, an.scan.columns[ci], tile_idx, tile_start,
+                min(tile_start + TILE, table.base_rows), dev)
+            datas.append(d)
+            valids.append(v)
+        params = ()
+        if hoisted is not None:
+            params = pextra.get(dev)
+            if params is None:
+                params = pextra[dev] = (to_device(hoisted[0], dev),
+                                        to_device(hoisted[1], dev))
+        base0 = tile_start
+        lo, hi = t0 - base0, t1 - base0
+        del_mask = _all_true(dev)
+        if len(del_arr):
+            dd = del_arr[(del_arr >= base0) & (del_arr < base0 + TILE)] - base0
+            if len(dd):
+                dm = np.ones(TILE, dtype=np.bool_)
+                dm[dd] = False
+                del_mask = to_device(dm, dev)
+
+        # the first dispatch of a freshly built program carries the
+        # compile label, as in the whole-table path
+        dspan = "copr.compile" if built_now else "copr.device.execute"
+        dattr = {"cache": "miss"} if built_now else {}
+        dattr["hbm_bytes"] = _hbm_bytes()
+        built_now = False
+        td0 = _time.perf_counter()
+        with span(dspan, kind=kind, tile=tile_idx, **dattr):
+            with chunk_admission():
+                out = fn(datas, valids, lo, hi, del_mask, *params)
+        observe_chunk("tile", (_time.perf_counter() - td0) * 1000.0,
+                      int(t1 - t0))
+        if kind == "filter":
+            m, outs = out
+            with span("copr.readback") as rsp:
+                sel_t = torch.nonzero(m).reshape(-1)
+                if remaining_limit is not None:
+                    sel_t = sel_t[:remaining_limit]
+                sel = sel_t.cpu().numpy()
+                nb = sel.nbytes
+                cols = []
+                if outs is not None and len(sel):
+                    for (dv, vv), p in zip(outs, an.proj_exprs):
+                        dv, vv = _np_tree((dv[sel_t], vv[sel_t]))
+                        nb += dv.nbytes + vv.nbytes
+                        cols.append(Column(p.ftype, dv, vv))
+                rsp.set(bytes=nb)
+            if len(sel) == 0:
+                continue
+            if outs is not None:
+                chunk = Chunk(cols)
+            else:
+                chunk = _gather_rows(table, an.scan, base0, sel)
+            out_chunks.append(chunk)
+            if remaining_limit is not None:
+                remaining_limit -= chunk.num_rows
+                if remaining_limit <= 0:
+                    break
+        elif kind == "agg":
+            gcount, results = out
+            with span("copr.readback") as rsp:
+                gh = _np_tree(gcount)
+                rh = [(t, _np_tree(r)) for t, r in results]
+                rsp.set(bytes=gh.nbytes + sum(
+                    (x.nbytes if not isinstance(x, tuple)
+                     else sum(y.nbytes for y in x)) for _t, x in rh))
+            agg_accum = _merge_device_agg(agg_accum, gh, rh, table, an,
+                                          base0)
+        else:  # topn
+            idx, cnt = out
+            with span("copr.readback") as rsp:
+                idx = _np_tree(idx[:int(cnt)])
+                rsp.set(bytes=idx.nbytes)
+            if len(idx):
+                topn_parts.append(_gather_rows(table, an.scan, base0, idx))
+
+    # every tile program completed: reset error streaks for the cards
+    # that actually ran a tile
+    DEVICE_HEALTH.record_success(sorted(used_ids))
+
+    if kind == "agg":
+        if agg_accum is None:
+            return []
+        return [_device_agg_to_chunk(agg_accum, table, an)]
+    if kind == "topn":
+        if not topn_parts:
+            return []
+        from .cpu_engine import run_topn
+
+        merged = topn_parts[0]
+        for p in topn_parts[1:]:
+            merged = merged.append(p)
+        return [run_topn(an.topn.order_by, an.topn.limit, merged)]
+    return out_chunks
+
+
+def _np_tree(r):
+    if isinstance(r, tuple):
+        return tuple(x.cpu().numpy() for x in r)
+    return r.cpu().numpy()
+
+
+def _gather_rows(table, scan: TableScanIR, base0: int,
+                 sel: np.ndarray) -> Chunk:
+    """Host gather of scan-output rows at tile-local indices `sel`: a
+    per-block sparse gather, not a contiguous-span materialization."""
+    return table.gather_chunk(list(scan.columns), base0 + sel)
+
+
+def _merge_device_agg(accum, gcount: np.ndarray, results, table,
+                      an: _Analyzed, base0: int):
+    """Accumulate per-tile dense G-arrays into running host arrays."""
+    if accum is None:
+        accum = {"gcount": gcount.copy(),
+                 "states": [[tag, None, None] for tag, _r in results]}
+    else:
+        accum["gcount"] += gcount
+    for si, (tag, r) in enumerate(results):
+        slot = accum["states"][si]
+        if tag == "count":
+            slot[1] = r if slot[1] is None else slot[1] + r
+        elif tag == "sumcount":
+            s, c = r
+            if slot[1] is None:
+                slot[1], slot[2] = s.copy(), c.copy()
+            else:
+                slot[1] += s
+                slot[2] += c
+        elif tag == "minmax":
+            v, c = r
+            if slot[1] is None:
+                slot[1], slot[2] = v.copy(), c.copy()
+            else:
+                a = an.agg.aggs[si]
+                pick = np.minimum if a.name == "min" else np.maximum
+                have_old = slot[2] > 0
+                have_new = c > 0
+                both = have_old & have_new
+                slot[1] = np.where(both, pick(slot[1], v),
+                                   np.where(have_new, v, slot[1]))
+                slot[2] += c
+        elif tag == "argfirst":
+            # r: per-group first row index in the tile (TILE if none)
+            arg = an.agg.aggs[si].args[0]
+            vals, valid = _resolve_first_values(table, an, arg, base0, r,
+                                                r < TILE)
+            if slot[1] is None:
+                slot[1], slot[2] = vals, valid
+            else:
+                need = ~slot[2] & valid
+                slot[1] = np.where(need, vals, slot[1])
+                slot[2] = slot[2] | valid
+    return accum
+
+
+def _resolve_first_values(table, an, arg, base0, idx, have):
+    sel = np.flatnonzero(have)
+    G = an.num_groups
+    st = arg.ftype
+    if st.kind == TypeKind.STRING:
+        vals = np.empty(G, dtype=object)
+        vals[:] = ""
+    else:
+        vals = np.zeros(G, dtype=st.np_dtype)
+    valid = np.zeros(G, dtype=np.bool_)
+    if len(sel):
+        rows = _gather_rows(table, an.scan, base0, idx[sel])
+        v = arg.eval(rows)
+        vals[sel] = v.data
+        valid[sel] = v.validity()
+    return vals, valid
+
 
 def _device_agg_to_chunk(accum, table, an: _Analyzed) -> Chunk:
     """Dense per-group arrays -> partial chunk [keys..., states...] with

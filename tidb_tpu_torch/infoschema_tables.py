@@ -505,6 +505,7 @@ def _tidb_tpu_engine(domain, isc):
                 f"nulls={'none' if val[1] is None else 'bitmap'}",
             ))
         rows.append(("programs", "mesh_compiled", str(len(pl._COMPILED))))
+        rows.append(("programs", "tile_compiled", str(len(te._COMPILED))))
         from .copr.cache import PROGRAM_CACHES
 
         for c in PROGRAM_CACHES:
@@ -514,6 +515,9 @@ def _tidb_tpu_engine(domain, isc):
                 f"size={st['size']}/{st['capacity']} hits={st['hits']} "
                 f"misses={st['misses']} evictions={st['evictions']}",
             ))
+        tile_cache = te.DEVICE_CACHE._c
+        rows.append(("tile_cache", "entries", str(len(tile_cache))))
+        rows.append(("tile_cache", "bytes", str(tile_cache._bytes)))
     except Exception as e:  # pragma: no cover - defensive surface
         rows.append(("engine", "error", repr(e)))
     return rows

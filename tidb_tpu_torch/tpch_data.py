@@ -107,13 +107,12 @@ def build_lineitem(n: int, regions: int = 8, seed: int = 7):
     return s
 
 
-def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
-                      regions: int = 4):
-    """Full 8-table synthetic TPC-H-shaped domain (the golden-suite
-    recipe, shared by tests/test_tpch.py and bench.py's `tpch_matrix`
-    receipt so the parity suite and the fused-fraction receipt can never
-    drift apart on schema or distribution).  Returns the session."""
-    from .session import Domain
+def tpch_domain_tables(scale: float = 1.0, seed: int = 1234):
+    """The 8-table synthetic TPC-H-shaped domain's arrays, table by table
+    in load order: (name, ddl, column arrays).  One numpy stream from
+    `seed`, draw for draw the JAX package's `build_tpch_domain`, so the
+    load and any reference computed from these arrays see the same
+    rows.  String columns are object arrays."""
     from .types.values import parse_date
 
     n_line = int(8000 * scale)
@@ -123,60 +122,51 @@ def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
     n_supp = max(int(40 * scale), 10)
     n_nation = 25
 
-    d = Domain()
-    s = d.new_session()
     rng = np.random.default_rng(seed)
     base = parse_date("1992-01-01")
     span = parse_date("1998-12-01") - base
 
-    def load(name, ddl, arrays):
-        s.execute(ddl)
-        t = d.catalog.info_schema().table("test", name)
-        store = d.storage.table(t.id)
-        store.bulk_load_arrays(arrays, ts=d.storage.current_ts())
-        d.storage.regions.split_even(t.id, regions, store.base_rows)
-        return t
-
-    load("nation", "create table nation (n_nationkey bigint, n_name "
-         "varchar(25), n_regionkey bigint)", [
+    yield "nation", ("create table nation (n_nationkey bigint, n_name "
+                     "varchar(25), n_regionkey bigint)"), [
         np.arange(n_nation, dtype=np.int64),
         np.array([f"NATION{i:02d}" for i in range(n_nation)],
                  dtype=object),
         rng.integers(0, 5, n_nation, dtype=np.int64),
-    ])
-    load("region", "create table region (r_regionkey bigint, r_name "
-         "varchar(25))", [
+    ]
+    yield "region", ("create table region (r_regionkey bigint, r_name "
+                     "varchar(25))"), [
         np.arange(5, dtype=np.int64),
         np.array(["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"],
                  dtype=object),
-    ])
+    ]
     scomments = np.array(["quick brown fox", "Customer stuff Complaints",
                           "regular deposits", "silent Customer noise"],
                          dtype=object)
-    load("supplier", "create table supplier (s_suppkey bigint, s_name "
-         "varchar(25), s_nationkey bigint, s_acctbal decimal(12,2), "
-         "s_comment varchar(40))", [
+    yield "supplier", ("create table supplier (s_suppkey bigint, s_name "
+                       "varchar(25), s_nationkey bigint, s_acctbal "
+                       "decimal(12,2), s_comment varchar(40))"), [
         np.arange(n_supp, dtype=np.int64),
         np.array([f"SUPP{i:04d}" for i in range(n_supp)], dtype=object),
         rng.integers(0, n_nation, n_supp, dtype=np.int64),
         np.round(rng.uniform(-999, 9999, n_supp) * 100).astype(np.int64),
         scomments[rng.integers(0, 4, n_supp)],
-    ])
-    load("partsupp", "create table partsupp (ps_partkey bigint, "
-         "ps_suppkey bigint, ps_availqty bigint, "
-         "ps_supplycost decimal(12,2))", [
+    ]
+    yield "partsupp", ("create table partsupp (ps_partkey bigint, "
+                       "ps_suppkey bigint, ps_availqty bigint, "
+                       "ps_supplycost decimal(12,2))"), [
         np.repeat(np.arange(n_part, dtype=np.int64), 4),
         rng.integers(0, n_supp, n_part * 4, dtype=np.int64),
         rng.integers(1, 10000, n_part * 4, dtype=np.int64),
         np.round(rng.uniform(1, 1000, n_part * 4) * 100).astype(np.int64),
-    ])
+    ]
     phones = np.array([f"{cc}-555-{i:04d}" for i, cc in zip(
         range(n_cust),
         np.array(["13", "31", "23", "29", "30", "18", "17", "44", "99"])[
             rng.integers(0, 9, n_cust)])], dtype=object)
-    load("customer", "create table customer (c_custkey bigint, c_name "
-         "varchar(25), c_nationkey bigint, c_mktsegment varchar(10), "
-         "c_acctbal decimal(12,2), c_phone varchar(15))", [
+    yield "customer", ("create table customer (c_custkey bigint, c_name "
+                       "varchar(25), c_nationkey bigint, c_mktsegment "
+                       "varchar(10), c_acctbal decimal(12,2), c_phone "
+                       "varchar(15))"), [
         np.arange(n_cust, dtype=np.int64),
         np.array([f"CUST{i:05d}" for i in range(n_cust)], dtype=object),
         rng.integers(0, n_nation, n_cust, dtype=np.int64),
@@ -184,10 +174,10 @@ def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
                   "FURNITURE"], dtype=object)[rng.integers(0, 5, n_cust)],
         np.round(rng.uniform(-999, 9999, n_cust) * 100).astype(np.int64),
         phones,
-    ])
-    load("part", "create table part (p_partkey bigint, p_name "
-         "varchar(30), p_type varchar(25), p_size bigint, "
-         "p_brand varchar(10))", [
+    ]
+    yield "part", ("create table part (p_partkey bigint, p_name "
+                   "varchar(30), p_type varchar(25), p_size bigint, "
+                   "p_brand varchar(10))"), [
         np.arange(n_part, dtype=np.int64),
         np.array([f"PART{i:05d}" for i in range(n_part)], dtype=object),
         np.array(["PROMO BRUSHED", "STANDARD POLISHED", "SMALL PLATED",
@@ -196,16 +186,16 @@ def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
         rng.integers(1, 50, n_part, dtype=np.int64),
         np.array([f"Brand#{i}" for i in range(1, 6)], dtype=object)[
             rng.integers(0, 5, n_part)],
-    ])
+    ]
     odate = (base + rng.integers(0, span, n_orders)).astype(np.int32)
     ocomments = np.array(["ordinary request", "special packed requests",
                           "pending special asks",
                           "normal special requests",
                           "quiet commentary"], dtype=object)
-    load("orders", "create table orders (o_orderkey bigint, o_custkey "
-         "bigint, o_orderstatus varchar(1), o_totalprice decimal(15,2), "
-         "o_orderdate date, o_orderpriority varchar(15), "
-         "o_comment varchar(40))", [
+    yield "orders", ("create table orders (o_orderkey bigint, o_custkey "
+                     "bigint, o_orderstatus varchar(1), o_totalprice "
+                     "decimal(15,2), o_orderdate date, o_orderpriority "
+                     "varchar(15), o_comment varchar(40))"), [
         np.arange(n_orders, dtype=np.int64),
         # leave the top 60 custkeys order-less so NOT IN subqueries hit
         rng.integers(0, max(n_cust - 60, 1), n_orders, dtype=np.int64),
@@ -217,18 +207,18 @@ def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
         np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
                   "5-LOW"], dtype=object)[rng.integers(0, 5, n_orders)],
         ocomments[rng.integers(0, 5, n_orders)],
-    ])
+    ]
     okeys = rng.integers(0, n_orders, n_line, dtype=np.int64)
     sdate = odate[okeys] + rng.integers(1, 120, n_line).astype(np.int32)
     cdate = sdate + rng.integers(-30, 30, n_line).astype(np.int32)
     rdate = sdate + rng.integers(1, 30, n_line).astype(np.int32)
-    load("lineitem", "create table lineitem (l_orderkey bigint, "
-         "l_partkey bigint, l_suppkey bigint, l_quantity decimal(15,2), "
-         "l_extendedprice decimal(15,2), l_discount decimal(15,2), "
-         "l_tax decimal(15,2), "
-         "l_returnflag varchar(1), l_linestatus varchar(1), "
-         "l_shipdate date, l_commitdate date, l_receiptdate date, "
-         "l_shipmode varchar(10))", [
+    yield "lineitem", ("create table lineitem (l_orderkey bigint, "
+                       "l_partkey bigint, l_suppkey bigint, l_quantity "
+                       "decimal(15,2), l_extendedprice decimal(15,2), "
+                       "l_discount decimal(15,2), l_tax decimal(15,2), "
+                       "l_returnflag varchar(1), l_linestatus varchar(1), "
+                       "l_shipdate date, l_commitdate date, "
+                       "l_receiptdate date, l_shipmode varchar(10))"), [
         okeys,
         rng.integers(0, n_part, n_line, dtype=np.int64),
         rng.integers(0, n_supp, n_line, dtype=np.int64),
@@ -244,7 +234,26 @@ def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
         rdate,
         np.array(["AIR", "MAIL", "SHIP", "TRUCK", "RAIL", "REG AIR",
                   "FOB"], dtype=object)[rng.integers(0, 7, n_line)],
-    ])
+    ]
+
+
+def build_tpch_domain(scale: float = 1.0, seed: int = 1234,
+                      regions: int = 4):
+    """Full 8-table synthetic TPC-H-shaped domain (the golden-suite
+    recipe, shared by the tests and the chip smoke run so they can never
+    drift apart on schema or distribution): `tpch_domain_tables` loaded
+    table by table, each split over `regions` regions.  Returns the
+    session."""
+    from .session import Domain
+
+    d = Domain()
+    s = d.new_session()
+    for name, ddl, arrays in tpch_domain_tables(scale, seed):
+        s.execute(ddl)
+        t = d.catalog.info_schema().table("test", name)
+        store = d.storage.table(t.id)
+        store.bulk_load_arrays(arrays, ts=d.storage.current_ts())
+        d.storage.regions.split_even(t.id, regions, store.base_rows)
     for t in ("lineitem", "orders", "customer"):
         s.execute(f"analyze table {t}")
     return s
@@ -273,13 +282,38 @@ Q3_SQL = (
 )
 
 
+def q3_tables(n_li: int, n_orders: int, seed: int = 11):
+    """The Q3 pair's arrays from one numpy stream, draw for draw the JAX
+    package's `build_q3_tables`: ("orders", columns) first, then
+    ("lineitem", columns) chunks of at most 2**21 rows.  Every lineitem
+    row's l_orderkey matches one order."""
+    from .types.values import parse_date
+
+    rng = np.random.default_rng(seed)
+    base = parse_date("1995-01-01")
+    yield "orders", [
+        np.arange(n_orders, dtype=np.int64),
+        (base + rng.integers(-400, 400, n_orders)).astype(np.int64),
+        rng.integers(0, 5, n_orders),
+    ]
+    CHUNK = 1 << 21
+    for s0 in range(0, n_li, CHUNK):
+        m = min(CHUNK, n_li - s0)
+        yield "lineitem", [
+            rng.integers(0, n_orders, m),
+            rng.integers(90_000, 10_500_001, m),
+            rng.integers(0, 11, m),
+            (base + rng.integers(-300, 300, m)).astype(np.int64),
+        ]
+
+
 def build_q3_tables(n_li: int, n_orders: int, regions: int = 8,
                     seed: int = 11):
     """Q3-shaped pair: orders (PK o_orderkey, the broadcast build side)
     joined by a lineitem fact table — the device lookup-join benchmark
-    shape (reference executor/join.go role under TPC-H Q3)."""
+    shape (reference executor/join.go role under TPC-H Q3).  The arrays
+    are `q3_tables`'; lineitem splits over `regions` regions."""
     from .session import Domain
-    from .types.values import parse_date
 
     domain = Domain()
     s = domain.new_session()
@@ -288,26 +322,13 @@ def build_q3_tables(n_li: int, n_orders: int, regions: int = 8,
     s.execute("create table lineitem (l_orderkey bigint,"
               " l_extendedprice decimal(15,2), l_discount decimal(15,2),"
               " l_shipdate date)")
-    rng = np.random.default_rng(seed)
-    base = parse_date("1995-01-01")
-    t_o = domain.catalog.info_schema().table("test", "orders")
+    for name, arrays in q3_tables(n_li, n_orders, seed):
+        t = domain.catalog.info_schema().table("test", name)
+        domain.storage.table(t.id).bulk_load_arrays(
+            arrays, ts=domain.storage.current_ts())
     t_l = domain.catalog.info_schema().table("test", "lineitem")
-    domain.storage.table(t_o.id).bulk_load_arrays([
-        np.arange(n_orders, dtype=np.int64),
-        (base + rng.integers(-400, 400, n_orders)).astype(np.int64),
-        rng.integers(0, 5, n_orders),
-    ], ts=domain.storage.current_ts())
-    CHUNK = 1 << 21
-    store = domain.storage.table(t_l.id)
-    for s0 in range(0, n_li, CHUNK):
-        m = min(CHUNK, n_li - s0)
-        store.bulk_load_arrays([
-            rng.integers(0, n_orders, m),
-            rng.integers(90_000, 10_500_001, m),
-            rng.integers(0, 11, m),
-            (base + rng.integers(-300, 300, m)).astype(np.int64),
-        ], ts=domain.storage.current_ts())
-    domain.storage.regions.split_even(t_l.id, regions, store.base_rows)
+    domain.storage.regions.split_even(
+        t_l.id, regions, domain.storage.table(t_l.id).base_rows)
     s.execute("analyze table orders")
     s.execute("analyze table lineitem")
     return s
