@@ -35,7 +35,14 @@ port's paths end to end from SQL over a synthetic lineitem:
   unpacks through K2 in the cold leg); and `pt`, three statements over
   orders whose table reader runs over six disjoint handle ranges, more
   than the fused program's range slots: the per-region rung runs them
-  tile by tile on the card.
+  tile by tile on the card; `ptl`, the same over Domain J's lineitem
+  (16 tiles, six spans that cross tile and region edges), before and
+  after deleting rows inside the spans.
+
+The fused program's rows per dispatch chunk are fixed at CHUNK_ROWS
+(`TIDB_TPU_DISPATCH_CHUNK_ROWS`): the port's own budget learns rows/ms
+from every earlier dispatch of the process, so each cell's chunking
+would depend on the cells run before it.
 
 Rows are checked against a plain numpy computation over the generator's
 own arrays, and Q1/Q6 at SF1 against the port's host engine.  Each
@@ -53,15 +60,16 @@ phase fails.
     python3 chip_smoke.py [--profile]
 
 `--profile` adds a torch.profiler breakdown of one steady Q1, Q6, ck1
-and ck2 in each deployment, of `sa` and `tn` hot, and of the join cells
-(q3, sj; q3p and q3d hot and cold), with the operators that take the
-most device and host time.
+and ck2 in each deployment, of `sa` and `tn` hot, and of the join and
+per-tile cells (q3, sj; q3p and q3d hot and cold; pt, ptl), with the
+operators that take the most device and host time.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -74,6 +82,9 @@ SF1_ROWS = 6_000_000
 KERNEL_ROWS = 64 << 20   # 64 Mi rows per kernel call, the scale of a scan
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SEED = 7
+#: rows per dispatch chunk of the fused program: SF10's 60 M rows in two
+#: (52,428,800 + 7,571,200), every other cell in one
+CHUNK_ROWS = 52_428_800
 
 #: the second slice's cells, in the order they run
 CK1 = ("select lower(l_returnflag), l_linestatus, sum(l_quantity),"
@@ -127,6 +138,25 @@ PT = [("pt_agg", "select o_shippriority, count(*), min(o_orderdate),"
       ("pt_filter", "select o_orderkey, o_orderdate, o_shippriority from"
                     f" orders where {PT_RANGES}"
                     f" and o_orderdate < '{PT_CUT}'")]
+#: ptl: the per-tile rung over Domain J's lineitem (handle == row, 16
+#: tiles of TILE = 2**20 rows, 8 regions of two tiles): six disjoint
+#: [lo, hi) row spans, ~6 M rows, each crossing a tile or a region edge;
+#: no SQL predicate names them, so the rows are held to numpy only
+PTL_SPANS = [(1_000_000, 1_100_000), (2_000_000, 3_200_000),
+             (4_190_000, 4_200_000), (6_000_000, 9_000_000),
+             (11_000_000, 11_600_000), (15_700_000, J_LINEITEM)]
+PTL_CUT = 194_100  # l_extendedprice in cents: ~1 % of 90,000..10,500,000
+PTL = [("ptl_agg", "select l_discount, count(*), min(l_shipdate),"
+                   " max(l_shipdate), sum(l_extendedprice) from lineitem"
+                   " group by l_discount"),
+       ("ptl_topn", "select l_extendedprice, l_shipdate from lineitem"
+                    " order by l_extendedprice desc limit 10"),
+       ("ptl_filter", "select l_orderkey, l_extendedprice, l_shipdate"
+                      " from lineitem where l_extendedprice <"
+                      f" {PTL_CUT // 100}.{PTL_CUT % 100:02d}")]
+#: the orders whose lineitem rows are deleted before ptl's second pass
+#: (~8 k rows over every tile)
+PTL_DELETE = tuple(range(7, J_ORDERS, 2048))
 
 
 def log(*a):
@@ -576,7 +606,9 @@ def q18_reference(n: int) -> dict:
 def q3_reference() -> dict:
     """Domain J's rows with numpy over `q3_tables` (the stream the load
     read): q3p and q3d (the lookup join's sums of scale-4 revenue, exact
-    in float64 far below 2**53), and pt's three queries over orders."""
+    in float64 far below 2**53), pt's three queries over orders, and
+    ptl's over lineitem's PTL_SPANS rows, before and after the deletes
+    of PTL_DELETE."""
     import numpy as np
 
     from tidb_tpu_torch.tpch_data import q3_tables
@@ -587,12 +619,19 @@ def q3_reference() -> dict:
     cnt = np.zeros(J_ORDERS, np.int64)
     d_cnt = np.zeros((5, 11), np.int64)
     d_rev = np.zeros((5, 11), np.float64)
+    spans, s0 = [], 0
     for name, cols in q3_tables(J_LINEITEM, J_ORDERS, J_SEED):
         if name == "orders":
             okey, odate, prio = cols
             o_ok = odate < cut
             continue
         lk, price, disc, ship = cols
+        # ptl's rows: this chunk's part of PTL_SPANS
+        in_span = np.zeros(len(lk), np.bool_)
+        for lo, hi in PTL_SPANS:
+            in_span[max(lo - s0, 0):max(hi - s0, 0)] = True
+        spans.append([c[in_span] for c in cols])
+        s0 += len(lk)
         m = o_ok[lk] & (ship > cut)
         lk, v, dm = lk[m], (price * (100 - disc))[m], disc[m]
         rev += np.bincount(lk, weights=v, minlength=J_ORDERS)
@@ -622,7 +661,37 @@ def q3_reference() -> dict:
     out["pt_filter"] = [(int(k), format_date(int(odate[k])), int(prio[k]))
                         for k in f]
     out["build_keys"] = {"q3p/q3d lookup": int(np.count_nonzero(o_ok))}
+    li = [np.concatenate(c) for c in zip(*spans)]
+    out["ptl"] = ptl_reference(li, np.ones(len(li[0]), np.bool_))
+    out["ptl_del"] = ptl_reference(li, ~np.isin(li[0], PTL_DELETE))
     return out
+
+
+def ptl_reference(li, keep) -> dict:
+    """ptl's rows with numpy over the span rows `li` (lineitem's columns)
+    that `keep` keeps."""
+    import numpy as np
+
+    from tidb_tpu_torch.types.values import format_date
+
+    lk, price, disc, ship = (c[keep] for c in li)
+    agg = []
+    for dd in range(11):
+        m = disc == dd
+        if m.any():
+            agg.append((dec(dd, 2), int(m.sum()),
+                        format_date(int(ship[m].min())),
+                        format_date(int(ship[m].max())),
+                        dec(int(price[m].sum()), 2)))
+    top = np.sort(price)[::-1][:10]
+    near = price >= top[-1]
+    f = np.flatnonzero(price < PTL_CUT)
+    return {"ptl_agg": agg,
+            "ptl_topn": [dec(int(p), 2) for p in top],
+            "ptl_top_rows": {(dec(int(p), 2), format_date(int(d)))
+                             for p, d in zip(price[near], ship[near])},
+            "ptl_filter": [(int(lk[i]), dec(int(price[i]), 2),
+                            format_date(int(ship[i]))) for i in f]}
 
 
 def tpch_reference() -> dict:
@@ -816,37 +885,6 @@ def join_cells(sess, label: str, n_rows: int, queries, want: dict,
     return res
 
 
-def run_ranged(sess, phys, spans):
-    """The rows of a planned statement (`phys`, its physical plan) with
-    its one table reader run over the disjoint handle `spans` (no SQL
-    predicate makes such a request on an unpartitioned table: the
-    planner derives ranges from partitions only), and the engines its
-    readers report."""
-    from tidb_tpu_torch.executor.base import collect_all
-    from tidb_tpu_torch.session.session import _format_row
-    from tidb_tpu_torch.store.kv import KeyRange
-
-    stack, readers = [phys], []
-    while stack:
-        p = stack.pop()
-        if type(p).__name__ == "PhysTableReader":
-            readers.append(p)
-        stack.extend(p.children)
-    (reader,) = readers
-    saved = reader.ranges
-    reader.ranges = [KeyRange(reader.dag.scan.table_id, lo, hi)
-                     for lo, hi in spans]
-    try:
-        ctx = sess._exec_ctx()
-        chunks = collect_all(phys.build(ctx))
-    finally:
-        reader.ranges = saved
-    fts = phys.schema.ftypes()
-    rows = [_format_row(r, fts) for c in chunks for r in c.to_pylist()]
-    return rows, [st.engine for st in ctx.stats.values()
-                  if getattr(st, "engine", None)]
-
-
 def check_pt(name: str, rows, want: dict):
     if name != "pt_topn":
         if not same_rows(rows, want[name], ordered=False):
@@ -863,22 +901,43 @@ def check_pt(name: str, rows, want: dict):
         raise AssertionError(f"pt_topn: {rows} != numpy reference")
 
 
-def pt_cells(sess, want: dict, profiling: bool, reps: int = 5) -> dict:
-    """pt: the per-tile rung.  Each statement runs once over the whole
-    table (the fused program), then with its reader over the six
-    PT_SPANS, which is more ranges than the fused program's range slots:
-    the request must report `tile-fanout` (the reader names the six
-    ranges), dispatch device tiles, run no region on the CPU engine and
-    no fused program, and give the statement's rows."""
-    from tidb_tpu_torch.metrics import REGISTRY
+def check_ptl(name: str, rows, want: dict):
+    if name != "ptl_topn":
+        if not same_rows(rows, want[name], ordered=False):
+            raise AssertionError(f"{name}: rows != numpy reference:\n"
+                                 f"{rows[:10]}\n{want[name][:10]}")
+        return
+    # prices may tie: the prices are the reference's, every row a real one
+    if [r[0] for r in rows] != want["ptl_topn"] or any(
+            tuple(r) not in want["ptl_top_rows"] for r in rows):
+        raise AssertionError(f"ptl_topn: {rows} != numpy reference")
 
+
+def tile_cells(sess, label: str, stmts, spans, check, profiling: bool,
+               whole: bool, reps: int = 5) -> dict:
+    """The per-tile rung.  Each (name, sql) is planned from SQL (its run
+    over the whole table by the fused program is checked too when
+    `whole`: its SQL then names the spans), then run with its reader
+    over the disjoint handle `spans`, more ranges than the fused
+    program's range slots: the request must report `tile-fanout` (the
+    reader names the ranges), dispatch at least one device tile per
+    tile the spans touch on every run, run no region on the CPU engine
+    and no fused program, and give rows that `check(name, rows)`
+    accepts."""
+    from tidb_tpu_torch.copr.torch_engine import TILE
+    from tidb_tpu_torch.metrics import REGISTRY
+    from tidb_tpu_torch.session.session import run_over_spans
+
+    touched = len({t for lo, hi in spans
+                   for t in range(lo // TILE, (hi - 1) // TILE + 1)})
     k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
     plans = {}
-    for name, sql in PT:
+    for name, sql in stmts:
         full = sess.query(sql)
-        check_pt(name, full, want)
+        if whole:
+            check(name, full)
         phys = plans[sql] = sess.last_plan
         k1.launches = k2.launches = 0
         snap = REGISTRY.snapshot()
@@ -886,49 +945,77 @@ def pt_cells(sess, want: dict, profiling: bool, reps: int = 5) -> dict:
                                        "cop_region_cpu_runs_total",
                                        "mesh_scans_total")]
         t0 = time.perf_counter()
-        rows, eng = run_ranged(sess, phys, PT_SPANS)
+        rows, eng = run_over_spans(sess, phys, spans)
         first = time.perf_counter() - t0
         steady = []
         for _ in range(reps):
             t0 = time.perf_counter()
-            again, _e = run_ranged(sess, phys, PT_SPANS)
+            again, _e = run_over_spans(sess, phys, spans)
             steady.append(time.perf_counter() - t0)
-            # every run is checked: pt_topn's ties may come back in
+            # every run is checked: a TopN's ties may come back in
             # another order as the regions finish in another order
-            check_pt(name, again, want)
+            check(name, again)
         snap = REGISTRY.snapshot()
         tiles, cpu_runs, mesh = [
             snap.get(k, 0) - c for k, c in zip(
                 ("dispatch_chunk_tile_ms_count", "cop_region_cpu_runs_total",
                  "mesh_scans_total"), c0)]
-        check_pt(name, rows, want)
+        check(name, rows)
         if not rows:
             raise AssertionError(f"{name}: no rows")
-        if not eng or not all(e.startswith("tile-fanout")
-                              and "6 disjoint ranges" in e for e in eng):
+        if not eng or not all(
+                e.startswith("tile-fanout")
+                and f"{len(spans)} disjoint ranges" in e for e in eng):
             raise AssertionError(f"{name}: route {eng}")
-        if tiles < 1 or cpu_runs or mesh:
-            raise AssertionError(f"{name}: tile dispatches {tiles}, CPU "
-                                 f"regions {cpu_runs}, fused runs {mesh}")
+        if tiles < touched * (1 + reps) or cpu_runs or mesh:
+            raise AssertionError(f"{name}: tile dispatches {tiles} (spans "
+                                 f"touch {touched} tiles), CPU regions "
+                                 f"{cpu_runs}, fused runs {mesh}")
         med = statistics.median(steady)
         out[name] = {"rows": len(rows), "first_s": first, "steady_s": med,
                      "tile_dispatches": tiles, "route": eng[0],
                      "launches": {"remap_codes": k1.launches,
                                   "unpack_codes": k2.launches}}
-        log(f"pt {name}: {len(rows)} rows == numpy reference == the "
-            f"fused program's; route {eng[0]}; {int(tiles)} device tile "
-            f"dispatches over {1 + reps} runs, 0 CPU-engine regions; first "
-            f"{first * 1e3:.1f} ms, steady median {med * 1e3:.1f} ms")
+        log(f"{label} {name}: {len(rows)} rows == numpy reference"
+            f"{' == the fused program' + chr(39) + 's' if whole else ''}; "
+            f"route {eng[0]}; {int(tiles)} device tile dispatches over "
+            f"{1 + reps} runs (spans touch {touched} tiles), 0 CPU-engine "
+            f"regions; first {first * 1e3:.1f} ms, steady median "
+            f"{med * 1e3:.1f} ms")
     if profiling:
         profile_queries(
-            sess, "pt", PT,
-            run=lambda sql: run_ranged(sess, plans[sql], PT_SPANS))
+            sess, label, stmts,
+            run=lambda sql: run_over_spans(sess, plans[sql], spans))
+    return out
+
+
+def ptl_cells(sess, want: dict, profiling: bool) -> dict:
+    """ptl: the per-tile rung over Domain J's lineitem, 16 tiles, six
+    spans that cross tile and region edges; then the lineitem rows of
+    PTL_DELETE's orders are deleted and the aggregation and the filter
+    run again over the spans, with the tiles' deletion masks."""
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    out = tile_cells(sess, "ptl", PTL, PTL_SPANS,
+                     lambda n, r: check_ptl(n, r, want["ptl"]), profiling,
+                     whole=False)
+    t0 = time.perf_counter()
+    keys = ", ".join(map(str, PTL_DELETE))
+    sess.execute(f"delete from lineitem where l_orderkey in ({keys})")
+    log(f"ptl: deleted the lineitem rows of {len(PTL_DELETE)} orders in "
+        f"{time.perf_counter() - t0:.1f} s")
+    again = [(n + "_del", sql) for n, sql in PTL if n != "ptl_topn"]
+    out.update(tile_cells(
+        sess, "ptl", again, PTL_SPANS,
+        lambda n, r: check_ptl(n[:-len("_del")], r, want["ptl_del"]),
+        profiling, whole=False))
     return out
 
 
 def join_phase(profiling: bool):
     """Domains T and J: the runtime filter (q3, sj), the lookup join hot
-    and cold (q3p, q3d) and the per-tile rung (pt).  Returns (cells, the
+    and cold (q3p, q3d) and the per-tile rung (pt over orders, one tile;
+    ptl over lineitem, 16 tiles, with deletes).  Returns (cells, the
     K2 inputs the cold join cells gave, keyed as `record_unpack_inputs`
     keys them)."""
     from tidb_tpu_torch.layout import hot_cap_bytes, set_hot_cap_bytes
@@ -970,7 +1057,8 @@ def join_phase(profiling: bool):
             raise AssertionError(f"J hot: kernel launches {r['launches']}")
     if profiling:
         profile_queries(sess, "J hot", j_cells)
-    pt = pt_cells(sess, want, profiling)
+    pt = tile_cells(sess, "pt", PT, PT_SPANS,
+                    lambda n, r: check_pt(n, r, want), profiling, whole=True)
 
     d = sess.domain
     table = d.storage.table(d.catalog.info_schema().table(
@@ -998,6 +1086,9 @@ def join_phase(profiling: bool):
         if r["launches"]["unpack_codes"] <= 0 or \
                 r["launches"]["remap_codes"]:
             raise AssertionError(f"J cold {name}: launches {r['launches']}")
+    # last: ptl deletes rows, which the cells above do not expect
+    reset_device_state()
+    ptl = ptl_cells(sess, want, profiling)
     del sess
     gc.collect()
     reset_device_state()
@@ -1005,6 +1096,7 @@ def join_phase(profiling: bool):
     cells.update({f"J hot {k}": v for k, v in hot.items()})
     cells.update({f"J cold {k}": v for k, v in cold.items()})
     cells.update(pt)
+    cells.update(ptl)
     return cells, seen
 
 
@@ -1165,6 +1257,7 @@ def main(argv) -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
         f", count {torch.cuda.device_count()}")
     ops.use_device("cuda")
+    os.environ["TIDB_TPU_DISPATCH_CHUNK_ROWS"] = str(CHUNK_ROWS)
 
     t0 = time.perf_counter()
     build_secs = build_all()
@@ -1267,9 +1360,7 @@ def main(argv) -> int:
     if profiling:
         profile_queries(sess, "cold", both)
 
-    # the join cells run after the SF10 cells, at the default hot cap,
-    # so the SF10 cells keep the dispatch chunking of the slices before
-    # (the chunk budget learns rows/ms from every earlier dispatch)
+    # the join cells, at the default hot cap
     del sess, table, d
     gc.collect()
     reset_device_state()

@@ -82,44 +82,16 @@ def pair():
     return _pair()
 
 
-def _pkg(sess) -> str:
-    return type(sess).__module__.split(".")[0]
-
-
 def _run_ranged(sess, sql, replan=True):
     """The rows of `sql` with its table reader run over SPANS, and the
     engines its readers report; `replan=False` reuses the plan of the
-    session's last statement."""
-    import importlib
+    session's last statement.  Both packages' sessions run through the
+    port's `run_over_spans`, which drives each with its own executors."""
+    from tidb_tpu_torch.session.session import run_over_spans
 
-    pkg = _pkg(sess)
-    kv = importlib.import_module(f"{pkg}.store.kv")
-    base = importlib.import_module(f"{pkg}.executor.base")
-    session_mod = importlib.import_module(f"{pkg}.session.session")
     if replan:
         sess.query(sql)  # plans the statement
-    phys = sess.last_plan
-    stack, readers = [phys], []
-    while stack:
-        p = stack.pop()
-        if type(p).__name__ == "PhysTableReader":
-            readers.append(p)
-        stack.extend(p.children)
-    (reader,) = readers
-    saved = reader.ranges
-    reader.ranges = [kv.KeyRange(reader.dag.scan.table_id, lo, hi)
-                     for lo, hi in SPANS]
-    try:
-        ctx = sess._exec_ctx()
-        chunks = base.collect_all(phys.build(ctx))
-    finally:
-        reader.ranges = saved
-    fts = phys.schema.ftypes()
-    rows = [session_mod._format_row(r, fts)
-            for c in chunks for r in c.to_pylist()]
-    engines = [st.engine for st in ctx.stats.values()
-               if getattr(st, "engine", None)]
-    return rows, engines
+    return run_over_spans(sess, sess.last_plan, SPANS)
 
 
 def _counts():

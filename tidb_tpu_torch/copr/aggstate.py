@@ -145,20 +145,20 @@ def partial_states(agg: AggDesc, arg_vecs: List[Vec], gidx: np.ndarray,
         return [sum_col, Column(pts[1], cnt)]
     if name in ("min", "max"):
         st = pts[0]
-        if st.kind == TypeKind.STRING:
-            out = np.empty(G, dtype=object)
-            out[:] = None
-            for i in range(len(gidx)):
-                if not valid[i]:
-                    continue
-                g = gidx[i]
-                x = v.data[i]
-                if out[g] is None or (x < out[g] if name == "min" else x > out[g]):
-                    out[g] = x
-            ovalid = np.array([x is not None for x in out], dtype=np.bool_)
+        if st.np_dtype == object:
+            # strings and wide decimals (Python ints past int64) have no
+            # fixed-width identity: each group starts from its first
+            # valid row
+            vi = np.flatnonzero(valid)
+            gv = gidx[vi]
+            first = np.full(G, -1, dtype=np.int64)
+            first[gv[::-1]] = vi[::-1]
+            ovalid = first >= 0
             data = np.empty(G, dtype=object)
-            for i in range(G):
-                data[i] = out[i] if out[i] is not None else ""
+            data[:] = "" if st.kind == TypeKind.STRING else 0
+            data[ovalid] = v.data[first[ovalid]]
+            op = np.minimum if name == "min" else np.maximum
+            op.at(data, gv, v.data[vi])
             return [Column(st, data, ovalid)]
         if st.np_dtype == np.float64:
             ident = np.inf if name == "min" else -np.inf

@@ -7,8 +7,9 @@ optimistic retry (:444,:635), and executor/adapter.go ExecStmt.
 
 from __future__ import annotations
 
+import sys
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -1955,6 +1956,40 @@ def _format_row(row: tuple, fts: List[FieldType]) -> tuple:
         else:
             out.append(v)
     return tuple(out)
+
+
+def run_over_spans(sess, phys, spans) -> Tuple[List[tuple], List[str]]:
+    """Run a planned statement (`phys`, e.g. `sess.last_plan`) with its
+    one table reader over the disjoint handle `spans` [lo, hi), and
+    return its rows and the engines its readers report.
+
+    No SQL predicate makes a multi-range request on an unpartitioned
+    table (the planner derives ranges from partitions only), so this is
+    how a request with more ranges than the fused program's range slots
+    is driven.  `collect_all` and the row format come from the
+    module of `sess`'s own class, so a session of a package laid out as
+    this one is runs it as well."""
+    mod = sys.modules[type(sess).__module__]
+    stack, readers = [phys], []
+    while stack:
+        p = stack.pop()
+        if type(p).__name__ == "PhysTableReader":
+            readers.append(p)
+        stack.extend(p.children)
+    (reader,) = readers
+    saved = reader.ranges
+    tid = reader.dag.scan.table_id
+    reader.ranges = [replace(saved[0], table_id=tid, start=lo, end=hi)
+                     for lo, hi in spans]
+    try:
+        ctx = sess._exec_ctx()
+        chunks = mod.collect_all(phys.build(ctx))
+    finally:
+        reader.ranges = saved
+    fts = phys.schema.ftypes()
+    rows = [mod._format_row(r, fts) for c in chunks for r in c.to_pylist()]
+    return rows, [st.engine for st in ctx.stats.values()
+                  if getattr(st, "engine", None)]
 
 
 def _plan_id_of(name: str) -> int:
