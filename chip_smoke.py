@@ -37,7 +37,18 @@ port's paths end to end from SQL over a synthetic lineitem:
   than the fused program's range slots: the per-region rung runs them
   tile by tile on the card; `ptl`, the same over Domain J's lineitem
   (16 tiles, six spans that cross tile and region edges), before and
-  after deleting rows inside the spans.
+  after deleting rows inside the spans;
+- the MPP exchange engine (one card, S = 1): `mA10`, the SF10 hot
+  lineitem joined with a 15 M-row orders table without a primary key
+  (a shuffle join), grouped by `lower(o_orderpriority)` (grouped
+  partials merged on the card, K1 re-mapping the key over the joined
+  rows), against numpy, with the peak device memory; on Domain T, `mC`
+  (a non-unique build key, scalar partials) and `mE` (rows), and the
+  join trees of TPC-H q3, q5, q10 and the semi join (`t3`, `t5`, `t10`,
+  `tsj`), against the port's host engine (and numpy for t3 and tsj).
+  The q3 and sj cells run with `tidb_allow_mpp = 0`, so the runtime-filter
+  path is still driven; each MPP cell must keep its rung and move no
+  fallback or overflow counter.
 
 The fused program's rows per dispatch chunk are fixed at CHUNK_ROWS
 (`TIDB_TPU_DISPATCH_CHUNK_ROWS`): the port's own budget learns rows/ms
@@ -60,9 +71,11 @@ phase fails.
     python3 chip_smoke.py [--profile]
 
 `--profile` adds a torch.profiler breakdown of one steady Q1, Q6, ck1
-and ck2 in each deployment, of `sa` and `tn` hot, and of the join and
-per-tile cells (q3, sj; q3p and q3d hot and cold; pt, ptl), with the
-operators that take the most device and host time.
+and ck2 in each deployment, of `sa` and `tn` hot, and of the join,
+MPP and per-tile cells (mA10; q3, sj, mC, mE, t3, t5, t10, tsj; q3p
+and q3d hot and cold; pt, ptl), with the kernels and host operators
+that take the most time and the device time of the named range
+`mpp.pack` (the exchange's bucket pack).
 """
 
 from __future__ import annotations
@@ -157,6 +170,32 @@ PTL = [("ptl_agg", "select l_discount, count(*), min(l_shipdate),"
 #: the orders whose lineitem rows are deleted before ptl's second pass
 #: (~8 k rows over every tile)
 PTL_DELETE = tuple(range(7, J_ORDERS, 2048))
+
+#: the fourth slice's cells: the MPP exchange engine.  mA10 joins the
+#: SF10 lineitem with an `orders` table of 15,000,001 rows that has no
+#: primary key (o_orderkey covers lineitem's l_orderkey domain [1,
+#: n/4 + 2), o_orderpriority one of TPC-H's five priorities drawn from
+#: M_SEED): a shuffle join (the build side is past the broadcast cap and
+#: not unique to the planner), grouped by a computed string key whose
+#: codes K1 re-maps over the joined rows
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+M_SEED = 5
+MA10 = ("select lower(o_orderpriority), count(*),"
+        " sum(l_extendedprice * (1 - l_discount))"
+        " from lineitem join orders on l_orderkey = o_orderkey"
+        " where l_shipdate > '1995-03-15' group by lower(o_orderpriority)")
+#: Domain T's MPP cells: a non-unique build key (4 partsupp rows a part)
+#: under scalar partials (mC) and in rows mode (mE), and the join trees
+#: of TPC-H q3, q5, q10 and the semi join (t3, t5, t10, tsj)
+MC = ("select count(*), sum(ps_supplycost), sum(l_quantity),"
+      " min(l_shipdate), max(ps_availqty) from lineitem join partsupp"
+      " on l_partkey = ps_partkey where l_quantity <= 10")
+ME = ("select l_orderkey, l_quantity, ps_availqty from lineitem"
+      " join partsupp on l_partkey = ps_partkey"
+      " where l_quantity < 1.25 and l_shipdate < '1993-01-01'")
+#: counters that move only when an MPP cell leaves its rung
+MPP_FAILURES = ("mpp_fallback_total", "mpp_partition_overflow_total",
+                "mpp_grouped_agg_overflow_total")
 
 
 def log(*a):
@@ -784,7 +823,7 @@ def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
 
 
 #: cells whose SQL orders its rows (the others compare as multisets)
-ORDERED = ("q1", "tn", "q3p", "q3")
+ORDERED = ("q1", "tn", "q3p", "q3", "t3", "t5", "t10")
 
 
 def same_rows(got, want, ordered: bool) -> bool:
@@ -882,6 +921,178 @@ def join_cells(sess, label: str, n_rows: int, queries, want: dict,
             or snap.get("mesh_agg_peel_total", 0) != peel0):
         raise AssertionError(f"{label}: a fusion split or an agg peel")
     check_rows(label, res, want)
+    return res
+
+
+def ma10_orders(n: int):
+    """mA10's orders columns: o_orderkey = 1 .. n/4 + 1 and a priority
+    code into PRIORITIES per order, drawn from M_SEED."""
+    import numpy as np
+
+    keys = np.arange(1, n // 4 + 2, dtype=np.int64)
+    prio = np.random.default_rng(M_SEED).integers(
+        0, len(PRIORITIES), len(keys)).astype(np.int32)
+    return keys, prio
+
+
+def ma10_reference(n: int, prio) -> list:
+    """mA10's rows with numpy over `lineitem_chunks(n)` and the orders
+    priorities: per priority the count and the scale-4 revenue sum
+    (exact int64 per chunk, folded into Python ints)."""
+    import numpy as np
+
+    from tidb_tpu_torch.tpch_data import lineitem_chunks
+    from tidb_tpu_torch.types.values import parse_date
+
+    cut = parse_date("1995-03-15")
+    cnt = [0] * len(PRIORITIES)
+    rev = [0] * len(PRIORITIES)
+    for (ok, _q, price, disc, _t, _rf, _ls, ship) in lineitem_chunks(
+            n, SEED):
+        m = ship > cut
+        p = prio[ok[m] - 1]
+        v = (price * (100 - disc))[m]
+        for g in range(len(PRIORITIES)):
+            s = p == g
+            cnt[g] += int(np.count_nonzero(s))
+            rev[g] += int(v[s].sum())
+    return [(PRIORITIES[g].lower(), cnt[g], dec(rev[g], 4))
+            for g in range(len(PRIORITIES)) if cnt[g]]
+
+
+def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
+              reps: int = 5) -> dict:
+    """The MPP exchange engine's cells.  Each (name, sql, op, metric)
+    must plan `op` (MPPJoin or MPPJoinTree) by EXPLAIN, run its first
+    run and `reps` steady runs on its rung (`metric` +1 a run), move
+    none of MPP_FAILURES, give the same rows every run and rows equal
+    to `want[name]`, and name an `engine:mpp-` rung in EXPLAIN ANALYZE.
+    K1's and K2's launch counts are set to 0 just before each cell's
+    runs and read just after."""
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    k1, k2 = _kernel_counts()
+    sess.execute("set tidb_use_tpu = 1")
+    out = {}
+    for name, sql, op, metric in cells:
+        ops_ = explain_ops(sess, sql)
+        if not any(o.startswith(op + "_") for o in ops_):
+            raise AssertionError(f"{label} {name}: no {op} in {ops_}")
+        snap = REGISTRY.snapshot()
+        c0 = [snap.get(k, 0) for k in (metric,) + MPP_FAILURES]
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        rows = sess.query(sql)
+        first = time.perf_counter() - t0
+        steady = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = sess.query(sql)
+            steady.append(time.perf_counter() - t0)
+            if not same_rows(again, rows, name in ORDERED):
+                raise AssertionError(f"{label} {name}: rows changed "
+                                     "between runs")
+        launches = {"remap_codes": k1.launches,
+                    "unpack_codes": k2.launches}
+        snap = REGISTRY.snapshot()
+        moved = [snap.get(k, 0) - c for k, c in zip(
+            (metric,) + MPP_FAILURES, c0)]
+        if moved[0] != 1 + reps or any(moved[1:]):
+            raise AssertionError(f"{label} {name}: {metric} +{moved[0]} "
+                                 f"over {1 + reps} runs, "
+                                 f"{dict(zip(MPP_FAILURES, moved[1:]))}")
+        if not same_rows(rows, want[name], name in ORDERED):
+            raise AssertionError(f"{label} {name}: rows != reference:\n"
+                                 f"{rows[:10]}\n{want[name][:10]}")
+        eng = [r[4] for r in sess.execute("explain analyze " + sql)[0].rows
+               if r[0].strip(" └─").startswith(op + "_")]
+        if not eng or not all("engine:mpp-" in e for e in eng):
+            raise AssertionError(f"{label} {name}: route {eng}")
+        route = re.search(r"engine:(\S+)", eng[0]).group(1)
+        med = statistics.median(steady)
+        out[name] = {"rows": rows, "first_s": first, "steady_s": med,
+                     "steady_all_s": steady, "rows_per_s": n_rows / med,
+                     "launches": launches, "route": route}
+        log(f"{label} {name}: {len(rows)} rows == reference; route {route}"
+            f", {metric} +{moved[0]}, fallback and overflow counters "
+            f"unmoved; first {first * 1e3:.1f} ms, steady median "
+            f"{med * 1e3:.1f} ms over {reps} runs, {n_rows / med:.4g} "
+            f"rows/s; launches K1 {launches['remap_codes']}, K2 "
+            f"{launches['unpack_codes']}")
+    return out
+
+
+def ma10_phase(sess, profiling: bool):
+    """mA10 over the SF10 hot session: load the orders table, compute the
+    numpy reference, run the cell with K1's inputs recorded, and print
+    the peak device memory.  Returns (cell, K1 inputs)."""
+    import torch
+
+    from tidb_tpu_torch.tpch_data import load_arrays
+
+    t0 = time.perf_counter()
+    keys, prio = ma10_orders(SF10_ROWS)
+    sess.execute("create table orders (o_orderkey bigint,"
+                 " o_orderpriority varchar(15))")
+    load_arrays(sess, "orders", [keys, prio], {1: PRIORITIES})
+    sess.execute("analyze table orders")
+    log(f"mA10: orders ({len(keys)} rows) loaded and analyzed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    want = {"mA10": ma10_reference(SF10_ROWS, prio)}
+    log(f"mA10 numpy reference: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = record_remap_inputs()
+    try:
+        res = mpp_cells(sess, "SF10", SF10_ROWS,
+                        [("mA10", MA10, "MPPJoin",
+                          "mpp_joins_shuffle_grouped_total")], want)
+    finally:
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    res["mA10"]["peak_bytes"] = peak
+    log(f"mA10: peak device memory {peak} bytes ({peak / 2**30:.2f} GiB, "
+        f"torch.cuda.max_memory_allocated)")
+    if res["mA10"]["launches"]["remap_codes"] <= 0:
+        raise AssertionError(f"mA10: K1 launches {res['mA10']['launches']}")
+    if len(seen) != 1:
+        raise AssertionError(f"mA10: K1 inputs {list(seen)}")
+    for (cdt, mdt, cap, n), (calls, _c, _m) in seen.items():
+        log(f"mA10: K1 input codes {cdt[6:]} n={n}, map {mdt[6:]} cap "
+            f"{cap}, {calls} calls")
+    if profiling:
+        profile_queries(sess, "SF10", [("mA10", MA10)])
+    return res, seen
+
+
+def t_mpp_cells(sess, want: dict, profiling: bool) -> dict:
+    """Domain T's MPP cells: each one's reference is the port's host
+    engine (computed once, its seconds logged); t3 and tsj also equal
+    the numpy references of q3 and sj."""
+    from tidb_tpu_torch.tpch_data import TPCH_QUERIES
+
+    cells = [("mC", MC, "MPPJoin", "mpp_joins_shuffle_total"),
+             ("mE", ME, "MPPJoin", "mpp_joins_shuffle_total")]
+    cells += [(f"t{q[1:]}", TPCH_QUERIES[q], "MPPJoinTree",
+               "mpp_tree_joins_total") for q in ("q3", "q5", "q10")]
+    cells.append(("tsj", SJ, "MPPJoinTree", "mpp_tree_joins_total"))
+    host = {}
+    sess.execute("set tidb_use_tpu = 0")
+    for name, sql, _op, _m in cells:
+        t0 = time.perf_counter()
+        host[name] = sess.query(sql)
+        log(f"T {name} host-engine reference: {len(host[name])} rows in "
+            f"{time.perf_counter() - t0:.1f} s")
+    for name, numpy_name in (("t3", "q3"), ("tsj", "sj")):
+        if not same_rows(host[name], want[numpy_name], True):
+            raise AssertionError(f"T {name}: host engine != numpy "
+                                 f"reference:\n{host[name]}\n"
+                                 f"{want[numpy_name]}")
+    log("T: t3 and tsj host-engine rows == numpy references")
+    res = mpp_cells(sess, "T", int(8000 * T_SCALE), cells, host, reps=3)
+    if profiling:
+        profile_queries(sess, "T", [(c[0], c[1]) for c in cells])
     return res
 
 
@@ -1031,6 +1242,9 @@ def join_phase(profiling: bool):
     log(f"domain T numpy reference: {time.perf_counter() - t0:.1f} s; "
         f"build keys {want['build_keys']}")
     t_cells = [("q3", TPCH_QUERIES["q3"]), ("sj", SJ)]
+    # the runtime-filter path: with MPP allowed the planner makes both
+    # join trees (t3 and tsj below)
+    sess.execute("set tidb_allow_mpp = 0")
     tc = join_cells(sess, "T", int(8000 * T_SCALE), t_cells, want,
                     "JoinProbe", reps=3)
     for r in tc.values():
@@ -1038,6 +1252,8 @@ def join_phase(profiling: bool):
             raise AssertionError(f"T: kernel launches {r['launches']}")
     if profiling:
         profile_queries(sess, "T", t_cells)
+    sess.execute("set tidb_allow_mpp = 1")
+    tc.update(t_mpp_cells(sess, want, profiling))
     del sess
     gc.collect()
     reset_device_state()
@@ -1106,6 +1322,7 @@ def profile_queries(sess, label: str, queries, run=None):
     share, and the operators that take the most device and host time.
     `run(sql)` runs a statement (default: `sess.query`)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run = run or sess.query
@@ -1124,8 +1341,15 @@ def profile_queries(sess, label: str, queries, run=None):
             return getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0))
 
-        busy = sum(dev_us(e) for e in ka)
-        top_dev = sorted(ka, key=dev_us, reverse=True)[:10]
+        # the device's own events (kernels, copies, memsets): an operator
+        # on the host may carry its kernels' time as its own self device
+        # time too (the MPP cells' aten::sort, aten::index, ...), and a
+        # named range (`mpp.pack`) has a device-side twin spanning its
+        # kernels; either would count those kernels twice
+        on_card = [e for e in ka if e.device_type != DeviceType.CPU
+                   and not e.key.startswith("mpp.")]
+        busy = sum(dev_us(e) for e in on_card)
+        top_dev = sorted(on_card, key=dev_us, reverse=True)[:10]
         top_cpu = sorted(ka, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:10]
         busy_txt = (f"{busy / 1e3:.2f} ms, idle share "
@@ -1134,6 +1358,12 @@ def profile_queries(sess, label: str, queries, run=None):
             f"kernels {busy_txt}")
         for e in top_dev:
             log(f"  device {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x {e.key}")
+        for e in ka:
+            if e.key.startswith("mpp.") and e.device_type == DeviceType.CPU:
+                # a named range: the device time of the kernels it ran
+                total = getattr(e, "device_time_total",
+                                getattr(e, "cuda_time_total", 0.0))
+                log(f"  range  {total / 1e3:9.3f} ms {e.count:5d}x {e.key}")
         for e in top_cpu:
             log(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms "
                 f"{e.count:5d}x {e.key}")
@@ -1360,11 +1590,16 @@ def main(argv) -> int:
     if profiling:
         profile_queries(sess, "cold", both)
 
-    # the join cells, at the default hot cap
+    # the MPP exchange engine over the SF10 lineitem, at the default
+    # hot cap (MPP sides read the hot tier)
+    reset_device_state()
+    set_hot_cap_bytes(default_cap)
+    ma10, seen_k1_mpp = ma10_phase(sess, profiling)
+
+    # the join cells
     del sess, table, d
     gc.collect()
     reset_device_state()
-    set_hot_cap_bytes(default_cap)
     joins, seen_join = join_phase(profiling)
     for key, rec in seen_join.items():
         if key in seen:
@@ -1372,7 +1607,7 @@ def main(argv) -> int:
         else:
             seen[key] = rec
     on_path_k2 = path_kernel_phase(seen)
-    for key, rec in seen_k1_cold.items():
+    for key, rec in list(seen_k1_cold.items()) + list(seen_k1_mpp.items()):
         if key in seen_k1:
             seen_k1[key][0] += rec[0]
         else:
@@ -1380,12 +1615,21 @@ def main(argv) -> int:
     on_path_k1 = path_k1_phase(seen_k1)
 
     cells = (list(hot.values()) + list(cold.values()) + list(q18.values())
-             + list(joins.values()))
+             + list(ma10.values()) + list(joins.values()))
     k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
     k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
+    k1 = kernel_entry("remap_codes", k1_launches, on_path_k1)
+    # K1 on the MPP path's input too: mA10's joined rows
+    mpp_key = next(iter(seen_k1_mpp))
+    k1_mpp = next(r for r in on_path_k1 if r["n"] == mpp_key[3]
+                  and r["code"] == mpp_key[0][6:]
+                  and r["cap"] == mpp_key[2])
+    k1["mpp_input"] = {k: k1_mpp[k] for k in (
+        "n", "code", "map", "cap", "calls", "ms", "plain_ms", "bound_ms",
+        "library_ms", "max_abs_err")}
+    k1["mpp_launches"] = ma10["mA10"]["launches"]["remap_codes"]
     kernels = {"kernels": [
-        kernel_entry("remap_codes", k1_launches, on_path_k1),
-        kernel_entry("unpack_codes", k2_launches, on_path_k2),
+        k1, kernel_entry("unpack_codes", k2_launches, on_path_k2),
     ]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

@@ -1,8 +1,9 @@
 """The torch port stands alone: no jax, nothing of the JAX package.
 
 In a fresh interpreter (this one has imported jax already, through
-conftest), importing `tidb_tpu_torch`, creating a Domain and running Q6
-must leave neither `jax` nor any `tidb_tpu.` module loaded; and a scan
+conftest), importing `tidb_tpu_torch` and its MPP engine
+(`tidb_tpu_torch.mpp`, with the join-tree engine), creating a Domain and
+running Q6 must leave neither `jax` nor any `tidb_tpu.` module loaded; and a scan
 of every source file under `tidb_tpu_torch/` finds no import of either
 and no Pallas.
 """
@@ -23,6 +24,8 @@ PKG = ROOT / "tidb_tpu_torch"
 _PROBE = r"""
 import json, sys
 import tidb_tpu_torch
+import tidb_tpu_torch.mpp
+import tidb_tpu_torch.mpp.jointree
 from tidb_tpu_torch import ops
 ops.use_device("cpu")
 from tidb_tpu_torch.tpch_data import LINEITEM_Q6, build_lineitem

@@ -263,22 +263,35 @@ def test_agg_overflow_peels_the_join_to_the_host(q3_pair, monkeypatch):
     assert eng and all("engine:mesh" in e for e in eng), eng
 
 
-def test_three_way_q3_runtime_filter(tpch_pair):
+@pytest.fixture
+def no_mpp(tpch_pair):
+    """The pair with the MPP engine disallowed (`tidb_allow_mpp = 0`):
+    the JAX planner then plans Q3 and the semi join as root hash joins
+    whose scans carry a runtime filter (with MPP allowed it plans them
+    as MPPJoinTree, tests/test_torch_mpp.py)."""
+    for s in tpch_pair:
+        s.execute("set tidb_allow_mpp = 0")
+    yield tpch_pair
+    for s in tpch_pair:
+        s.execute("set tidb_allow_mpp = 1")
+
+
+def test_three_way_q3_runtime_filter(no_mpp):
     from tidb_tpu_torch.tpch_data import TPCH_QUERIES
 
     q3 = TPCH_QUERIES["q3"]
-    plan = _explain(tpch_pair[1], q3)
+    plan = _explain(no_mpp[1], q3)
     assert any("JoinProbe" in r[0] for r in plan), plan
     assert any("runtime-filter" in str(r[3]) for r in plan), plan
-    assert len(_ordered_parity(tpch_pair, q3,
+    assert len(_ordered_parity(no_mpp, q3,
                                lambda r: (-r[1], r[0]))) == 10
 
 
-def test_semi_join_runtime_filter(tpch_pair):
-    plan = _explain(tpch_pair[1], SEMI)
+def test_semi_join_runtime_filter(no_mpp):
+    plan = _explain(no_mpp[1], SEMI)
     assert any("semi" in str(r[3]) and "runtime-filter" in str(r[3])
                for r in plan), plan
-    assert _device_parity(tpch_pair, SEMI)[0][0] > 0
+    assert _device_parity(no_mpp, SEMI)[0][0] > 0
 
 
 def test_float_keyed_runtime_filter():

@@ -622,6 +622,48 @@ def grouped_partial_states(aggs, arg_fn, order, sm, seg, cap,
     return results
 
 
+def merge_grouped_partials(aggs, key_bits, key_flags, row_valid, states,
+                           cap):
+    """Merge compacted (key, partial-state) rows — the gathered groups
+    of an MPP grouped aggregation — into <= cap merged groups: a second
+    sort-group over the partial rows, then state-MERGE reductions
+    (counts and sums add, min/max fold only partials with a count > 0,
+    first_row keeps the least global row index).
+
+    `states` uses grouped_partial_states' layout per agg.  Returns
+    (n_uniq, out_keys, merged_states); n_uniq > cap means the merged
+    group count blew the budget.  Counts and integer sums reduce the
+    sorted segments with a prefix sum, as grouped_partial_states does."""
+    order, sm, skeys, seg, pos, n_uniq = sort_group_segments(
+        key_bits, key_flags, row_valid, cap)
+    spans = _segment_spans(seg, cap)
+
+    def add(x, m):
+        x = x[order]
+        if x.dtype == torch.int64:
+            return _sorted_segment_sum(
+                torch.where(m, x, torch.zeros_like(x)), spans)
+        return ops.masked_segment_sum(x, seg, m, cap)
+
+    merged = []
+    for a, st in zip(aggs, states):
+        if a.name == "count":
+            merged.append(add(st, sm))
+        elif a.name in ("sum", "avg"):
+            s, c = st
+            merged.append((add(s, sm), add(c, sm)))
+        elif a.name in ("min", "max"):
+            v, c = st
+            mv = sm & (c[order] > 0)  # empty partials carry sentinels
+            red = (ops.masked_segment_min if a.name == "min"
+                   else ops.masked_segment_max)
+            merged.append((red(v[order], seg, mv, cap), add(c, sm)))
+        else:  # first_row: the smallest global row index wins
+            merged.append(ops.masked_segment_min(st[order], seg, sm, cap))
+    out_keys = tuple(k[pos] for k in skeys)
+    return n_uniq, out_keys, merged
+
+
 # ---------------------------------------------------------------------------
 # fusion regions: split a fragment at unfusable boundaries
 # ---------------------------------------------------------------------------

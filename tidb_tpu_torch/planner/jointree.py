@@ -532,9 +532,7 @@ def _n_slots_before(tp: _TreePlan, rung: dict) -> int:
 
 
 def _tree_gate(col: Optional[_Collected], pctx) -> bool:
-    from .physical import MPP_ENGINE
-
-    if col is None or not MPP_ENGINE:
+    if col is None:
         return False
     if not pctx.allow_mpp or not pctx.enable_pushdown \
             or pctx.prefer_merge_join:

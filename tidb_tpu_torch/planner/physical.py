@@ -1792,12 +1792,6 @@ def _ij_type_ok(ct: FieldType, inner_ft: FieldType) -> bool:
 _MPP_OUT_KINDS = _DJ_PAYLOAD_KINDS + (TypeKind.STRING,)
 
 
-#: the MPP exchange engine (mpp/) is not part of the port yet: every MPP
-#: plan shape declines through its gate's ineligible return, and the
-#: generic join lanes serve the query
-MPP_ENGINE = False
-
-
 def _mpp_join_parts(join: LogicalJoin, pctx: PhysicalContext):
     """Structural + cost gates for the MPP shuffle join; returns
     (probe_l, build_l, p_task, b_task, pk_pos, bk_pos, probe_is_left,
@@ -1807,8 +1801,6 @@ def _mpp_join_parts(join: LogicalJoin, pctx: PhysicalContext):
     equality on device; build keys may be NON-unique — the local join
     is a two-pass count+emit expansion), plain scan[+selection]
     fragments on both sides."""
-    if not MPP_ENGINE:
-        return None
     if join.kind not in ("inner", "left_outer") or not join.eq_conds \
             or join.other_conds:
         return None
@@ -1979,8 +1971,9 @@ MPP_GROUP_BUDGET_MIN = 1 << 10
 
 
 def _mpp_grouped_enabled() -> bool:
-    # the grouped exchange program lives in the MPP engine (MPP_ENGINE)
-    return False
+    from ..mpp.engine import grouped_pushdown_enabled
+
+    return grouped_pushdown_enabled()
 
 
 def _mpp_group_ndv(p_task, b_task, group_by, pctx) -> float:
