@@ -48,7 +48,27 @@ port's paths end to end from SQL over a synthetic lineitem:
   `tsj`), against the port's host engine (and numpy for t3 and tsj).
   The q3 and sj cells run with `tidb_allow_mpp = 0`, so the runtime-filter
   path is still driven; each MPP cell must keep its rung and move no
-  fallback or overflow counter.
+  fallback or overflow counter;
+- the serving path `srv` on Domain T: the port's MySQL server in this
+  process (`tidb_tpu_torch.server.MySQLServer`) and 32 concurrent wire
+  connections of 8 statements each (this script carries its own
+  protocol-4.1 client), round-robin over a scalar aggregate by supplier,
+  a grouped aggregate over a 30-day ship window and a ~40-row filter by
+  part, literals from default_rng(6); one pass solo, one with
+  `SET GLOBAL tidb_tpu_microbatch_window_ms = 5`, where statements of
+  one shape coalesce into one batched per-tile program per tile
+  (serving/batcher.py).  Rows of both passes against numpy; every
+  batched statement must run in a batch (`serving_batched_stmts_total`)
+  on `engine:microbatch`, batches must hold more than one member, and
+  the solo pass must move no batch counter.  Statements/s, p50/p99
+  latency and the mean batch size are printed for each pass;
+- fixed-order float sums: a table of 16,777,216 doubles grouped by 100
+  keys (past the 32 groups whose sums unroll), in dense mode (a stored
+  key) and in sort mode (a computed key, `k % 100`), 5 runs each: the
+  rows must be bit-identical across runs and equal math.fsum per group
+  after tests/test_tpch.py's `_norm`; then the dense shape with four
+  literals in one micro-batch (4 x 100 float segments) against its solo
+  rows after `_norm`.
 
 The fused program's rows per dispatch chunk are fixed at CHUNK_ROWS
 (`TIDB_TPU_DISPATCH_CHUNK_ROWS`): the port's own budget learns rows/ms
@@ -73,7 +93,8 @@ phase fails.
 `--profile` adds a torch.profiler breakdown of one steady Q1, Q6, ck1
 and ck2 in each deployment, of `sa` and `tn` hot, and of the join,
 MPP and per-tile cells (mA10; q3, sj, mC, mE, t3, t5, t10, tsj; q3p
-and q3d hot and cold; pt, ptl), with the kernels and host operators
+and q3d hot and cold; pt, ptl) and the float cells, the device time
+and idle share of each `srv` pass, with the kernels and host operators
 that take the most time and the device time of the named range
 `mpp.pack` (the exchange's bucket pack).
 """
@@ -196,6 +217,43 @@ ME = ("select l_orderkey, l_quantity, ps_availqty from lineitem"
 #: counters that move only when an MPP cell leaves its rung
 MPP_FAILURES = ("mpp_fallback_total", "mpp_partition_overflow_total",
                 "mpp_grouped_agg_overflow_total")
+
+#: the serving phase `srv`: Domain T over the MySQL wire, SRV_CONNS
+#: concurrent connections of SRV_STMTS statements each, round-robin over
+#: three shapes with literals from default_rng(SRV_SEED); one pass solo
+#: (no batching window), one with the window at SRV_WINDOW_MS
+SRV_CONNS = 32
+SRV_STMTS = 8
+SRV_SEED = 6
+SRV_WINDOW_MS = 5
+SRV_SHAPES = {
+    # scalar dense aggregation
+    "a": ("select count(*), sum(l_quantity), sum(l_extendedprice) from"
+          " lineitem where l_suppkey = {}"),
+    # grouped dense aggregation over a 30-day ship window
+    "b": ("select l_returnflag, l_linestatus, count(*), sum(l_extendedprice)"
+          " from lineitem where l_shipdate >= '{}' and l_shipdate < '{}'"
+          " group by l_returnflag, l_linestatus"),
+    # filter (~40 rows)
+    "c": "select l_orderkey, l_quantity from lineitem where l_partkey = {}",
+}
+SRV_COUNTERS = ("serving_batches_total", "serving_batched_stmts_total",
+                "serving_batch_errors_total")
+
+#: the float phase: FL_ROWS doubles over FL_GROUPS keys (above the
+#: unrolled sums' 32 groups), each statement run FL_RUNS times
+FL_ROWS = 16_777_216
+FL_GROUPS = 100
+FL_SEED = 8
+FL_RUNS = 5
+FL_DENSE = "select k, count(*), sum(x) from fl group by k"
+FL_SORT = ("select k % 100, count(*), sum(x) from fl"
+           " group by k % 100")
+FL_BATCH = ("select k, count(*), sum(x) from fl where x < {}"
+            " group by k")
+FL_BATCH_CUTS = (0.125, 0.375, 0.625, 0.875)
+#: the reduction alone at the size of an SF10 lineitem scan
+FL_OP_ROWS = 59_986_052
 
 
 def log(*a):
@@ -1254,6 +1312,8 @@ def join_phase(profiling: bool):
         profile_queries(sess, "T", t_cells)
     sess.execute("set tidb_allow_mpp = 1")
     tc.update(t_mpp_cells(sess, want, profiling))
+    reset_device_state()
+    tc.update(srv_phase(sess, profiling))
     del sess
     gc.collect()
     reset_device_state()
@@ -1314,6 +1374,586 @@ def join_phase(profiling: bool):
     cells.update(pt)
     cells.update(ptl)
     return cells, seen
+
+
+# ---------------------------------------------------------------------------
+# the serving phase: the MySQL wire server and the micro-batcher
+# ---------------------------------------------------------------------------
+
+class MiniClient:
+    """A minimal MySQL protocol-4.1 client (handshake response,
+    COM_QUERY, text result sets): the card machine has no MySQL client
+    library."""
+
+    def __init__(self, host, port):
+        self.host, self.port = host, port
+
+    async def connect(self, db=""):
+        import asyncio
+        import struct
+
+        from tidb_tpu_torch.server import protocol as P
+        from tidb_tpu_torch.server.packet import PacketReader, PacketWriter
+
+        self.reader, self.writer = await asyncio.open_connection(
+            self.host, self.port)
+        self.pr = PacketReader(self.reader)
+        self.pw = PacketWriter(self.writer)
+        greeting = await self.pr.recv()
+        assert greeting[0] == 10  # protocol version
+        caps = P.CLIENT_PROTOCOL_41 | P.CLIENT_SECURE_CONNECTION
+        if db:
+            caps |= P.CLIENT_CONNECT_WITH_DB
+        resp = struct.pack("<I", caps) + struct.pack("<I", 1 << 24)
+        resp += bytes([33]) + b"\x00" * 23
+        resp += b"root\x00" + b"\x00"  # user, empty auth
+        if db:
+            resp += db.encode() + b"\x00"
+        self.pw.seq = self.pr.seq
+        await self.pw.send(resp)
+        ok = await self.pr.recv()
+        assert ok[0] == 0x00, ok
+
+    async def command(self, cmd: int, payload: bytes = b""):
+        self.pw.reset_seq()
+        await self.pw.send(bytes([cmd]) + payload)
+
+    async def query(self, sql: str):
+        import struct
+
+        from tidb_tpu_torch.server.packet import (read_lenenc_int,
+                                                  read_lenenc_str)
+
+        await self.command(0x03, sql.encode())
+        first = await self.pr.recv()
+        if first[0] == 0x00:  # OK
+            affected, _pos = read_lenenc_int(first, 1)
+            return {"ok": True, "affected": affected}
+        if first[0] == 0xFF:
+            code = struct.unpack_from("<H", first, 1)[0]
+            raise AssertionError(f"wire error {code}: {first[9:].decode()}"
+                                 f" ({sql})")
+        ncols, _ = read_lenenc_int(first, 0)
+        cols = []
+        for _ in range(ncols):
+            cdef = await self.pr.recv()
+            pos = 0
+            vals = []
+            for _ in range(6):
+                v, pos = read_lenenc_str(cdef, pos)
+                vals.append(v)
+            cols.append(vals[4].decode())
+        eof = await self.pr.recv()
+        assert eof[0] == 0xFE
+        rows = []
+        while True:
+            pkt = await self.pr.recv()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                break
+            pos = 0
+            row = []
+            for _ in range(ncols):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    v, pos = read_lenenc_str(pkt, pos)
+                    row.append(v.decode())
+            rows.append(tuple(row))
+        return {"cols": cols, "rows": rows}
+
+    async def close(self):
+        await self.command(0x01)
+        self.writer.close()
+
+
+class ServerThread:
+    """The port's MySQLServer, in this process, on an event loop of its
+    own thread; `stop()` stops the server, its worker pool and the
+    loop."""
+
+    def __init__(self, domain, workers=None):
+        import asyncio
+
+        from tidb_tpu_torch.server import MySQLServer
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       name="srv-loop", daemon=True)
+        self.thread.start()
+        self.srv = (MySQLServer(domain, port=0) if workers is None
+                    else MySQLServer(domain, port=0, workers=workers))
+        asyncio.run_coroutine_threadsafe(self.srv.start(),
+                                         self.loop).result(60)
+
+    def stop(self):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.srv.stop(),
+                                         self.loop).result(120)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(60)
+        self.loop.close()
+        self.srv.pool.shutdown(wait=True)
+
+
+def srv_statements() -> list:
+    """SRV_CONNS lists of SRV_STMTS (shape, sql, literals): shapes
+    round-robin, literals drawn from default_rng(SRV_SEED) over the
+    generator's own domains at T_SCALE (suppliers, parts, ship dates)."""
+    import numpy as np
+
+    from tidb_tpu_torch.types.values import format_date, parse_date
+
+    rng = np.random.default_rng(SRV_SEED)
+    n_supp = max(int(40 * T_SCALE), 10)
+    n_part = int(200 * T_SCALE)
+    # ship dates: an order date in [1992-01-01, 1998-12-01) + 1..119 days
+    first = parse_date("1992-01-02")
+    last = parse_date("1998-12-01") + 119
+    conns = []
+    for i in range(SRV_CONNS):
+        stmts = []
+        for j in range(SRV_STMTS):
+            shape = "abc"[(i * SRV_STMTS + j) % 3]
+            if shape == "b":
+                d0 = int(rng.integers(first, last - 30))
+                args = (d0, d0 + 30)
+                sql = SRV_SHAPES[shape].format(format_date(d0),
+                                               format_date(d0 + 30))
+            else:
+                hi = n_supp if shape == "a" else n_part
+                args = (int(rng.integers(0, hi)),)
+                sql = SRV_SHAPES[shape].format(*args)
+            stmts.append((shape, sql, args))
+        conns.append(stmts)
+    return conns
+
+
+def wire_text(v):
+    """A value as the wire's text protocol renders it."""
+    if v is None:
+        return None
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def srv_reference(conns) -> dict:
+    """Each statement's rows with numpy over `tpch_domain_tables` (the
+    stream the load read), as wire text, sorted: counts and decimal sums
+    as exact integers rendered the way the session renders a decimal."""
+    import numpy as np
+
+    from tidb_tpu_torch.tpch_data import tpch_domain_tables
+
+    for name, _ddl, cols in tpch_domain_tables(T_SCALE, T_SEED):
+        if name == "lineitem":
+            li = cols
+    okey, pkey, skey, qty, price = li[0], li[1], li[2], li[3], li[4]
+    ship = li[9]
+    rf_names, rf = np.unique(li[7], return_inverse=True)
+    ls_names, ls = np.unique(li[8], return_inverse=True)
+    want = {}
+    for stmts in conns:
+        for shape, sql, args in stmts:
+            if sql in want:
+                continue
+            if shape == "a":
+                m = skey == args[0]
+                n = int(np.count_nonzero(m))
+                rows = [(n, dec(int(qty[m].sum()), 2) if n else None,
+                         dec(int(price[m].sum()), 2) if n else None)]
+            elif shape == "b":
+                m = (ship >= args[0]) & (ship < args[1])
+                code = rf[m] * len(ls_names) + ls[m]
+                p = price[m]
+                rows = []
+                for g in np.unique(code):
+                    sel = code == g
+                    rows.append((rf_names[g // len(ls_names)],
+                                 ls_names[g % len(ls_names)],
+                                 int(np.count_nonzero(sel)),
+                                 dec(int(p[sel].sum()), 2)))
+            else:
+                m = pkey == args[0]
+                rows = [(int(o), dec(int(q), 2))
+                        for o, q in zip(okey[m], qty[m])]
+            want[sql] = sorted(tuple(wire_text(v) for v in r) for r in rows)
+    return want
+
+
+def srv_pass(server, conns, window_ms: int, profiling: bool) -> dict:
+    """One pass of every connection's statements over the wire, all
+    connections at once, with the batching window at `window_ms` (SET
+    GLOBAL over the wire, as a user turns it on).  A warm-up statement of
+    each shape runs first, alone; the counters and the clock start
+    after it."""
+    import asyncio
+
+    import torch
+
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    host, port = server.srv.host, server.srv.port
+
+    async def setup():
+        cli = MiniClient(host, port)
+        await cli.connect(db="test")
+        await cli.query("set global tidb_tpu_microbatch_window_ms = "
+                        f"{window_ms}")
+        seen = set()
+        for stmts in conns:
+            for shape, sql, _a in stmts:
+                if shape not in seen:
+                    seen.add(shape)
+                    await cli.query(sql)
+        await cli.close()
+
+    async def one(stmts, out):
+        cli = MiniClient(host, port)
+        await cli.connect(db="test")
+        for shape, sql, _a in stmts:
+            t0 = time.perf_counter()
+            r = await cli.query(sql)
+            out.append((shape, sql, time.perf_counter() - t0, r["rows"]))
+        await cli.close()
+
+    async def drive():
+        outs = [[] for _ in conns]
+        t0 = time.perf_counter()
+        await asyncio.gather(*(one(st, o) for st, o in zip(conns, outs)))
+        return time.perf_counter() - t0, [x for o in outs for x in o]
+
+    asyncio.run(setup())
+    snap0 = REGISTRY.snapshot()
+    prof = None
+    if profiling:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    wall, done = asyncio.run(drive())
+    if prof is not None:
+        torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+    snap1 = REGISTRY.snapshot()
+    moved = {k: snap1.get(k, 0) - snap0.get(k, 0) for k in SRV_COUNTERS}
+    lat = sorted(x[2] for x in done)
+    res = {"window_ms": window_ms, "stmts": len(done), "wall_s": wall,
+           "stmts_per_s": len(done) / wall,
+           "p50_ms": statistics.median(lat) * 1e3,
+           "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))] * 1e3,
+           "counters": moved, "done": done}
+    if prof is not None:
+        from torch.autograd import DeviceType
+
+        busy = sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU)
+        res["device_ms"] = busy / 1e3
+        res["idle"] = 1 - busy / (wall * 1e6)
+    return res
+
+
+def srv_routes(server, conns, window_ms: int) -> dict:
+    """EXPLAIN ANALYZE of one statement of each shape over the wire:
+    the engine its lineitem reader ran on."""
+    import asyncio
+
+    sqls = {}
+    for stmts in conns:
+        for shape, sql, _a in stmts:
+            sqls.setdefault(shape, sql)
+
+    async def body():
+        cli = MiniClient(server.srv.host, server.srv.port)
+        await cli.connect(db="test")
+        await cli.query("set global tidb_tpu_microbatch_window_ms = "
+                        f"{window_ms}")
+        out = {}
+        for shape, sql in sorted(sqls.items()):
+            r = await cli.query("explain analyze " + sql)
+            out[shape] = [row[4] for row in r["rows"]
+                          if "TableReader" in row[0]]
+        await cli.close()
+        return out
+
+    return asyncio.run(body())
+
+
+def srv_phase(sess, profiling: bool) -> dict:
+    """The serving path on Domain T: the port's MySQL server in this
+    process, SRV_CONNS concurrent wire connections, two passes over the
+    same statements (solo, then micro-batched), first on the server's
+    default worker pool, then on a pool of one worker per connection
+    (`_w32`: the window's waiting leaders then hold no slot a queued
+    member needs).  Fails unless every pass's rows equal numpy, every
+    batched statement ran in a batch (the counters) on
+    `engine:microbatch` (EXPLAIN ANALYZE), batches held more than one
+    member, and the solo passes moved no batch counter."""
+    k1, k2 = _kernel_counts()
+    conns = srv_statements()
+    t0 = time.perf_counter()
+    want = srv_reference(conns)
+    log(f"srv numpy reference: {len(want)} statements in "
+        f"{time.perf_counter() - t0:.1f} s")
+    passes, routes = {}, {}
+    k1.launches = k2.launches = 0
+    for suffix, workers in (("", None), (f"_w{SRV_CONNS}", SRV_CONNS)):
+        server = ServerThread(sess.domain, workers)
+        try:
+            for name, window in (("solo", 0), ("batched", SRV_WINDOW_MS)):
+                passes[name + suffix] = srv_pass(server, conns, window,
+                                                 profiling)
+                passes[name + suffix]["workers"] = server.srv.workers
+                if not suffix:
+                    routes[name] = srv_routes(server, conns, window)
+        finally:
+            server.stop()
+            from tidb_tpu_torch import serving
+
+            serving.configure(microbatch_window_ms=0.0)
+    launches = {"remap_codes": k1.launches, "unpack_codes": k2.launches}
+    n = SRV_CONNS * SRV_STMTS
+    for name, p in passes.items():
+        bad = [(sql, rows[:5], want[sql][:5]) for _s, sql, _t, rows
+               in p["done"] if sorted(rows, key=str) != sorted(
+                   want[sql], key=str)]
+        if len(p["done"]) != n or bad:
+            raise AssertionError(f"srv {name}: {len(p['done'])} of {n} "
+                                 f"statements, rows != numpy: {bad[:3]}")
+        c = p["counters"]
+        if name.startswith("solo") and any(c.values()):
+            raise AssertionError(f"srv {name}: batch counters moved {c}")
+        if name.startswith("batched") and (
+                c["serving_batched_stmts_total"] != n
+                or c["serving_batch_errors_total"]
+                or not c["serving_batched_stmts_total"]
+                > c["serving_batches_total"]):
+            raise AssertionError(f"srv {name}: not every statement ran in "
+                                 f"a batch, or no batch held more than "
+                                 f"one member: {c}")
+        dev = (f", device {p['device_ms']:.2f} ms, idle share "
+               f"{p['idle']:.3f}" if "device_ms" in p else "")
+        p["mean_batch"] = (c["serving_batched_stmts_total"]
+                           / c["serving_batches_total"]
+                           if c["serving_batches_total"] else 0.0)
+        log(f"srv {name} ({p['workers']} workers, window "
+            f"{p['window_ms']} ms): {n} statements in {p['wall_s']:.3f} s, "
+            f"{p['stmts_per_s']:.1f} statements/s, latency p50 "
+            f"{p['p50_ms']:.2f} ms, p99 {p['p99_ms']:.2f} ms; batches "
+            f"{c['serving_batches_total']}, batched statements "
+            f"{c['serving_batched_stmts_total']}, mean batch size "
+            f"{p['mean_batch']:.2f}, batch errors "
+            f"{c['serving_batch_errors_total']}{dev}")
+        for shape in "abc":
+            lat = sorted(t for s, _q, t, _r in p["done"] if s == shape)
+            log(f"  srv {name} shape {shape}: {len(lat)} statements, p50 "
+                f"{statistics.median(lat) * 1e3:.2f} ms, max "
+                f"{lat[-1] * 1e3:.2f} ms")
+        del p["done"]
+    log(f"srv routes: {routes}")
+    for shape, eng in routes["batched"].items():
+        if not eng or not all("engine:microbatch" in e for e in eng):
+            raise AssertionError(f"srv batched {shape}: route {eng}")
+    for shape, eng in routes["solo"].items():
+        if not eng or not all("engine:mesh" in e for e in eng):
+            raise AssertionError(f"srv solo {shape}: route {eng}")
+    if launches != {"remap_codes": 0, "unpack_codes": 0}:
+        raise AssertionError(f"srv: kernel launches {launches}")
+    ratio = {s: passes["batched" + s]["stmts_per_s"]
+             / passes["solo" + s]["stmts_per_s"] for s in ("", "_w32")}
+    log(f"srv: rows == numpy in every pass; batched / solo statements/s "
+        f"{ratio['']:.3f} ({passes['solo']['workers']} workers), "
+        f"{ratio['_w32']:.3f} ({SRV_CONNS} workers)")
+    return {"srv": {"launches": launches, "passes": passes}}
+
+
+# ---------------------------------------------------------------------------
+# the float phase: fixed-order float sums on the card
+# ---------------------------------------------------------------------------
+
+def norm(rows):
+    """tests/test_tpch.py `_norm`: floats rounded to 6 places."""
+    return sorted((tuple(round(v, 6) if isinstance(v, float) else v
+                         for v in r) for r in rows), key=str)
+
+
+def float_phase(profiling: bool) -> dict:
+    """FL_ROWS doubles grouped by FL_GROUPS keys, past the unrolled sums'
+    32 groups: in dense mode (a stored bigint key: the fixed-order
+    segmented sum of ops/segment.py) and in sort mode (a computed key:
+    `fusion.grouped_partial_states`' per-span sums), FL_RUNS runs each.
+    Fails unless every run's rows are bit-identical, and equal
+    math.fsum per group after `_norm`; then FL_BATCH with four
+    literals, concurrently under a batching window (B x G = 400
+    segments in one batched reduction), against its solo rows after
+    `_norm`."""
+    import math
+
+    import numpy as np
+
+    from tidb_tpu_torch import serving
+    from tidb_tpu_torch.metrics import REGISTRY
+    from tidb_tpu_torch.session import Domain
+
+    k1, k2 = _kernel_counts()
+    rng = np.random.default_rng(FL_SEED)
+    keys = rng.integers(0, FL_GROUPS, FL_ROWS, dtype=np.int64)
+    x = rng.random(FL_ROWS)
+    d = Domain()
+    sess = d.new_session()
+    sess.execute("create table fl (k bigint, x double)")
+    t = d.catalog.info_schema().table("test", "fl")
+    store = d.storage.table(t.id)
+    store.bulk_load_arrays([keys, x], ts=d.storage.current_ts())
+    d.storage.regions.split_even(t.id, 8, store.base_rows)
+    sess.execute("set tidb_use_tpu = 1")
+    t0 = time.perf_counter()
+    order = np.argsort(keys, kind="stable")
+    bounds = np.searchsorted(keys[order], np.arange(FL_GROUPS + 1))
+    fsum = [math.fsum(x[order[bounds[g]:bounds[g + 1]]])
+            for g in range(FL_GROUPS)]
+    want = norm([(g, int(bounds[g + 1] - bounds[g]), fsum[g])
+                 for g in range(FL_GROUPS)])
+    log(f"fl: {FL_ROWS} rows, {FL_GROUPS} groups; math.fsum reference "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    k1.launches = k2.launches = 0
+    for name, sql in (("fl_dense", FL_DENSE), ("fl_sort", FL_SORT)):
+        runs, times = [], []
+        for _ in range(FL_RUNS):
+            t0 = time.perf_counter()
+            runs.append(sess.query(sql))
+            times.append(time.perf_counter() - t0)
+        eng = engines(sess, sql)
+        bits = {repr(sorted(r, key=str)) for r in runs}
+        if len(bits) != 1:
+            raise AssertionError(f"{name}: {len(bits)} different results "
+                                 f"in {FL_RUNS} runs")
+        got = runs[0]
+        if norm(got) != want:
+            raise AssertionError(f"{name}: rows != math.fsum after _norm: "
+                                 f"{norm(got)[:3]} vs {want[:3]}")
+        if not eng or not all("engine:mesh" in e for e in eng):
+            raise AssertionError(f"{name}: route {eng}")
+        rel = max(abs(r[2] - fsum[r[0]]) / abs(fsum[r[0]]) for r in got)
+        out[name] = {"steady_s": statistics.median(times[1:]),
+                     "first_s": times[0], "max_rel_err": rel}
+        log(f"{name}: {FL_RUNS} runs bit-identical, rows == math.fsum "
+            f"after _norm (max relative error {rel:.3e}); first "
+            f"{times[0] * 1e3:.1f} ms, steady median "
+            f"{out[name]['steady_s'] * 1e3:.1f} ms; route {eng}")
+    if profiling:
+        profile_queries(sess, "fl", [("fl_dense", FL_DENSE),
+                                     ("fl_sort", FL_SORT)])
+    # the dense shape micro-batched: four literals of a hoisted predicate
+    sqls = [FL_BATCH.format(c) for c in FL_BATCH_CUTS]
+    solo = [sess.query(q) for q in sqls]
+    serving.configure(microbatch_window_ms=250.0)
+    sessions = [d.new_session() for _ in sqls]
+    results = [None] * len(sqls)
+    errors = [None] * len(sqls)
+    barrier = threading.Barrier(len(sqls))
+
+    def run(i):
+        barrier.wait()
+        try:
+            results[i] = sessions[i].query(sqls[i])
+        except BaseException as e:  # noqa: BLE001 — checked below
+            errors[i] = e
+
+    b0 = REGISTRY.snapshot()
+    threads = [threading.Thread(target=run, args=(i,), name=f"fl-{i}")
+               for i in range(len(sqls))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    serving.configure(microbatch_window_ms=0.0)
+    b1 = REGISTRY.snapshot()
+    moved = {k: b1.get(k, 0) - b0.get(k, 0) for k in SRV_COUNTERS}
+    if any(errors) or any(th.is_alive() for th in threads):
+        raise AssertionError(f"fl batched: errors {errors}")
+    if moved["serving_batches_total"] != 1 \
+            or moved["serving_batched_stmts_total"] != len(sqls):
+        raise AssertionError(f"fl batched: not one batch of {len(sqls)}: "
+                             f"{moved}")
+    for q, got, w in zip(sqls, results, solo):
+        if norm(got) != norm(w):
+            raise AssertionError(f"fl batched: rows != solo after _norm: "
+                                 f"{q}")
+    launches = {"remap_codes": k1.launches, "unpack_codes": k2.launches}
+    log(f"fl batched: {len(sqls)} statements x {FL_GROUPS} groups in one "
+        f"batch, {wall * 1e3:.1f} ms, rows == solo rows after _norm; "
+        f"launches {launches}")
+    out["fl_batch"] = {"wall_s": wall}
+    del sess, d
+    gc.collect()
+    reset_device_state()
+    out["fl_ops"] = float_op_times()
+    return {"fl": {"launches": launches, "cells": out}}
+
+
+def float_op_times() -> dict:
+    """A dense float GROUP BY's reduction alone over FL_OP_ROWS rows and
+    FL_GROUPS groups on the card, timed in turns: the fixed-order sum
+    (`ops.masked_segment_sum`: stable sort, span lengths, per-span sums)
+    against the atomic `index_add_` scatter it replaced, and three sums
+    over the same codes sharing one `ops.SpanOrder` against three that
+    each sort.  Each fixed-order form is checked equal, bit for bit, to
+    its first call."""
+    import torch
+
+    from tidb_tpu_torch import ops
+
+    dev = ops.device()
+    g = torch.Generator(device=dev).manual_seed(FL_SEED)
+    x = torch.rand(FL_OP_ROWS, dtype=torch.float64, device=dev, generator=g)
+    gidx = torch.randint(0, FL_GROUPS, (FL_OP_ROWS,), device=dev,
+                         generator=g)
+    mask = torch.rand(FL_OP_ROWS, device=dev, generator=g) < 0.9
+    xs = (x, x * 3.0, x - 0.5)
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+
+    def fixed():
+        return ops.masked_segment_sum(x, gidx, mask, FL_GROUPS)
+
+    def atomic():
+        out = torch.zeros(FL_GROUPS, dtype=x.dtype, device=dev)
+        return out.index_add_(0, gidx, torch.where(mask, x, zero))
+
+    def three_shared():
+        spans = ops.SpanOrder(gidx, FL_GROUPS)
+        return [ops.masked_segment_sum(v, gidx, mask, FL_GROUPS, spans)
+                for v in xs]
+
+    def three_sorting():
+        return [ops.masked_segment_sum(v, gidx, mask, FL_GROUPS)
+                for v in xs]
+
+    first = fixed().cpu().numpy()
+    first3 = [r.cpu().numpy() for r in three_shared()]
+    ms = time_turns({"fixed": fixed, "index_add_": atomic,
+                     "three_shared": three_shared,
+                     "three_sorting": three_sorting}, reps=10)
+    if fixed().cpu().numpy().tobytes() != first.tobytes() or any(
+            a.cpu().numpy().tobytes() != b.tobytes()
+            for a, b in zip(three_sorting(), first3)):
+        raise AssertionError("fl ops: a fixed-order sum changed its bits")
+    rel = float(((atomic() - fixed()).abs() / fixed().abs()).max())
+    log(f"fl ops ({FL_OP_ROWS} rows, {FL_GROUPS} groups): fixed-order "
+        f"{ms['fixed']:.4f} ms, index_add_ {ms['index_add_']:.4f} ms "
+        f"(relative difference {rel:.3e}); three sums sharing one sort "
+        f"{ms['three_shared']:.4f} ms, each sorting "
+        f"{ms['three_sorting']:.4f} ms")
+    del x, gidx, mask, xs
+    torch.cuda.empty_cache()
+    return {"rows": FL_OP_ROWS, **ms, "index_add_rel_diff": rel}
 
 
 def profile_queries(sess, label: str, queries, run=None):
@@ -1606,6 +2246,7 @@ def main(argv) -> int:
             seen[key][0] += rec[0]
         else:
             seen[key] = rec
+    fl = float_phase(profiling)
     on_path_k2 = path_kernel_phase(seen)
     for key, rec in list(seen_k1_cold.items()) + list(seen_k1_mpp.items()):
         if key in seen_k1:
@@ -1615,7 +2256,8 @@ def main(argv) -> int:
     on_path_k1 = path_k1_phase(seen_k1)
 
     cells = (list(hot.values()) + list(cold.values()) + list(q18.values())
-             + list(ma10.values()) + list(joins.values()))
+             + list(ma10.values()) + list(joins.values())
+             + list(fl.values()))
     k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
     k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
     k1 = kernel_entry("remap_codes", k1_launches, on_path_k1)

@@ -119,3 +119,29 @@ def test_masked_top_k_orders_ties_by_row_on_card(card, descending):
         want = torch.sort(kf, descending=True, stable=True).indices[:k]
         assert int(cnt) == k
         assert torch.equal(idx, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [33, 100, 4097])
+def test_float_segment_sums_are_bit_identical_on_card(card, G):
+    """Float sums above UNROLL_G (a stable sort of the group codes and a
+    direct per-span sum, no atomics) give the same bits in 5 runs on
+    the card, solo and as a batch of 4 masks, and agree with the CPU
+    within relative 1e-12 plus 1e-3 absolute (two summation orders of
+    up to ~5e5 values of magnitude <= 5e5 differ by ~1e-4 at most)."""
+    from tidb_tpu_torch.ops import masked_segment_sum
+
+    n = 1 << 24
+    g = torch.Generator(device=card).manual_seed(17)
+    data = (torch.rand(n, device=card, generator=g, dtype=torch.float64)
+            - 0.5) * 1e6
+    gidx = torch.randint(0, G, (n,), device=card, generator=g)
+    masks = torch.rand(4, n, device=card, generator=g) < 0.7
+    for mask in (masks[0], masks):
+        runs = [masked_segment_sum(data, gidx, mask, G).cpu().numpy()
+                for _ in range(5)]
+        for r in runs[1:]:
+            assert r.tobytes() == runs[0].tobytes()
+        host = masked_segment_sum(data.cpu(), gidx.cpu(), mask.cpu(),
+                                  G).numpy()
+        np.testing.assert_allclose(runs[0], host, rtol=1e-12, atol=1e-3)

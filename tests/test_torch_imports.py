@@ -1,11 +1,12 @@
 """The torch port stands alone: no jax, nothing of the JAX package.
 
 In a fresh interpreter (this one has imported jax already, through
-conftest), importing `tidb_tpu_torch` and its MPP engine
-(`tidb_tpu_torch.mpp`, with the join-tree engine), creating a Domain and
-running Q6 must leave neither `jax` nor any `tidb_tpu.` module loaded; and a scan
-of every source file under `tidb_tpu_torch/` finds no import of either
-and no Pallas.
+conftest), importing `tidb_tpu_torch`, its MPP engine
+(`tidb_tpu_torch.mpp`, with the join-tree engine), its serving path
+(`tidb_tpu_torch.server`, `.serving.batcher`, `tidb_tpu_torch.__main__`),
+creating a Domain and running Q6 must leave neither `jax` nor any
+`tidb_tpu.` module loaded; and a scan of every source file under
+`tidb_tpu_torch/` finds no import of either and no Pallas.
 """
 
 import ast
@@ -26,6 +27,10 @@ import json, sys
 import tidb_tpu_torch
 import tidb_tpu_torch.mpp
 import tidb_tpu_torch.mpp.jointree
+import tidb_tpu_torch.server
+import tidb_tpu_torch.server.server
+import tidb_tpu_torch.serving.batcher
+import tidb_tpu_torch.__main__
 from tidb_tpu_torch import ops
 ops.use_device("cpu")
 from tidb_tpu_torch.tpch_data import LINEITEM_Q6, build_lineitem

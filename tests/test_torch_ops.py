@@ -213,3 +213,129 @@ def test_unsupported_raises_device_unsupported():
     e = ex.ScalarFunc("no_such_fn", [], ttypes.ty_int(), {})
     with pytest.raises(tx.DeviceUnsupported):
         tx.compile_expr(e, {}, 4, dev=torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# float sums in one fixed order (no atomics)
+# ---------------------------------------------------------------------------
+
+
+def _no_index_add(monkeypatch):
+    """Make any index_add_ fail: float sums must not scatter-add."""
+    def boom(*_a, **_k):
+        raise AssertionError("index_add_ reached by a float sum")
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", boom)
+
+
+def _fsum_inputs(G: int, n: int = 20_000):
+    rng = np.random.default_rng(23)
+    data = rng.uniform(-1e6, 1e6, n) * 10.0 ** rng.integers(-6, 6, n)
+    gidx = rng.integers(0, G, n, dtype=np.int64)
+    mask = rng.random(n) < 0.7
+    return data, gidx, mask
+
+
+@pytest.mark.parametrize("G", [33, 100, 4097])
+def test_float_segment_sum_above_unroll_is_fixed_order(monkeypatch, G):
+    """Above UNROLL_G a float masked_segment_sum takes the stable sort and
+    the direct per-span sum: no index_add_, the same bits on every call,
+    and each group within 1e-12 relative of math.fsum of its rows."""
+    import math
+
+    from tidb_tpu_torch.ops.segment import UNROLL_G
+
+    assert G > UNROLL_G
+    data, gidx, mask = _fsum_inputs(G)
+    _no_index_add(monkeypatch)
+    t = [torch.from_numpy(x) for x in (data, gidx, mask)]
+    runs = [tops.masked_segment_sum(*t, G).numpy() for _ in range(3)]
+    for r in runs[1:]:
+        assert r.tobytes() == runs[0].tobytes()
+    for g in range(G):
+        want = math.fsum(data[mask & (gidx == g)])
+        assert runs[0][g] == pytest.approx(want, rel=1e-12, abs=1e-300), g
+
+
+def test_batched_float_segment_sum_equals_each_member(monkeypatch):
+    """A batch of masks [B, n] over G > UNROLL_G groups (B x G segments
+    in one call) gives each member's solo sums bit for bit, with no
+    index_add_."""
+    G, B = 40, 4
+    data, gidx, _ = _fsum_inputs(G)
+    rng = np.random.default_rng(5)
+    masks = rng.random((B, len(data))) < 0.5
+    _no_index_add(monkeypatch)
+    d, g = torch.from_numpy(data), torch.from_numpy(gidx)
+    got = tops.masked_segment_sum(d, g, torch.from_numpy(masks), G)
+    assert tuple(got.shape) == (B, G)
+    for b in range(B):
+        one = tops.masked_segment_sum(d, g, torch.from_numpy(masks[b]), G)
+        assert got[b].numpy().tobytes() == one.numpy().tobytes()
+
+
+def test_span_order_sorts_the_codes_once(monkeypatch):
+    """Float sums sharing one `SpanOrder` sort the group codes once, solo
+    and for a batch of masks, and give the same bits as sums that sort
+    for themselves."""
+    G, B = 40, 3
+    data, gidx, mask = _fsum_inputs(G)
+    rng = np.random.default_rng(9)
+    masks = torch.from_numpy(rng.random((B, len(data))) < 0.5)
+    d, g, m = (torch.from_numpy(x) for x in (data, gidx, mask))
+    want = [tops.masked_segment_sum(d, g, m, G),
+            tops.masked_segment_sum(d * 3.0, g, m, G),
+            tops.masked_segment_sum(d, g, masks, G)]
+    sorts = []
+    real = torch.argsort
+
+    def counting(*a, **k):
+        sorts.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch, "argsort", counting)
+    spans = tops.SpanOrder(g, G)
+    got = [tops.masked_segment_sum(d, g, m, G, spans),
+           tops.masked_segment_sum(d * 3.0, g, m, G, spans),
+           tops.masked_segment_sum(d, g, masks, G, spans)]
+    assert len(sorts) == 1
+    for a, b in zip(got, want):
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def test_sort_mode_float_partials_are_fixed_order(monkeypatch):
+    """grouped_partial_states and merge_grouped_partials sum floats per
+    sorted span directly: no index_add_, equal to math.fsum per group."""
+    import math
+
+    from tidb_tpu_torch.copr import fusion
+    from tidb_tpu_torch.expr.aggregation import AggDesc
+    from tidb_tpu_torch.expr.expression import ColumnExpr
+    from tidb_tpu_torch.types import FieldType, TypeKind
+
+    G, cap = 50, 64
+    data, keys, mask = _fsum_inputs(G)
+    ft = FieldType(TypeKind.FLOAT)
+    aggs = [AggDesc("sum", [ColumnExpr(0, ft)], False, ft)]
+    _no_index_add(monkeypatch)
+    kt, mt, dt = (torch.from_numpy(keys), torch.from_numpy(mask),
+                  torch.from_numpy(data))
+    flags = [torch.zeros_like(kt)]
+    order, sm, _sk, seg, _pos, n_uniq = fusion.sort_group_segments(
+        [kt], flags, mt, cap)
+    assert int(n_uniq) == G
+    (total, cnt), = fusion.grouped_partial_states(
+        aggs, lambda e: (dt, torch.ones_like(mt)), order, sm, seg, cap)
+    for slot in range(G):
+        k = int(kt[order][torch.nonzero(seg == slot)[0, 0]])
+        want = math.fsum(data[mask & (keys == k)])
+        assert float(total[slot]) == pytest.approx(want, rel=1e-12), slot
+    # merging two copies of the partials doubles every sum exactly
+    rows = torch.cat([torch.arange(cap)] * 2)
+    n_uniq2, _keys, merged = fusion.merge_grouped_partials(
+        aggs, [rows], [torch.zeros_like(rows)],
+        torch.cat([torch.arange(cap) < G] * 2),
+        [(torch.cat([total, total]), torch.cat([cnt, cnt]))], cap)
+    assert int(n_uniq2) == G
+    np.testing.assert_array_equal(merged[0][0][:G].numpy(),
+                                  2 * total[:G].numpy())

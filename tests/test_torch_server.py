@@ -1,0 +1,405 @@
+"""The port's MySQL wire server (`tidb_tpu_torch/server/`) with a
+minimal in-repo client, on the CPU.
+
+Reference test model: server/conn_test.go + packetio tests — the client
+here speaks just enough protocol 4.1 (handshake response, COM_QUERY,
+COM_PING, COM_STMT_PREPARE/EXECUTE) to verify framing, result sets and
+errors.  The same SQL sent to a `tidb_tpu` server and a `tidb_tpu_torch`
+server over identically loaded data must come back with identical
+column names and text rows; `python -m tidb_tpu_torch --engine cpu`
+boots, answers and stops.
+"""
+
+import asyncio
+import json
+import os
+import re
+import signal
+import struct
+import subprocess
+import sys
+import time
+import urllib.request
+from pathlib import Path
+
+import pytest
+
+from tidb_tpu_torch import ops as tops
+from tidb_tpu_torch.server import MySQLServer
+from tidb_tpu_torch.server import protocol as P
+from tidb_tpu_torch.server.packet import (
+    PacketReader,
+    PacketWriter,
+    read_lenenc_int,
+    read_lenenc_str,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu():
+    tops.use_device("cpu")
+
+
+class MiniClient:
+    def __init__(self, host, port):
+        self.host, self.port = host, port
+
+    async def connect(self, db=""):
+        self.reader, self.writer = await asyncio.open_connection(
+            self.host, self.port
+        )
+        self.pr = PacketReader(self.reader)
+        self.pw = PacketWriter(self.writer)
+        greeting = await self.pr.recv()
+        assert greeting[0] == 10  # protocol version
+        caps = P.CLIENT_PROTOCOL_41 | P.CLIENT_SECURE_CONNECTION
+        if db:
+            caps |= P.CLIENT_CONNECT_WITH_DB
+        resp = struct.pack("<I", caps) + struct.pack("<I", 1 << 24)
+        resp += bytes([33]) + b"\x00" * 23
+        resp += b"root\x00" + b"\x00"  # user, empty auth
+        if db:
+            resp += db.encode() + b"\x00"
+        self.pw.seq = self.pr.seq
+        await self.pw.send(resp)
+        ok = await self.pr.recv()
+        assert ok[0] == 0x00, ok
+
+    async def command(self, cmd: int, payload: bytes = b""):
+        self.pw.reset_seq()
+        await self.pw.send(bytes([cmd]) + payload)
+
+    async def query(self, sql: str):
+        await self.command(0x03, sql.encode())
+        first = await self.pr.recv()
+        if first[0] == 0x00:  # OK
+            affected, pos = read_lenenc_int(first, 1)
+            return {"ok": True, "affected": affected}
+        if first[0] == 0xFF:
+            code = struct.unpack_from("<H", first, 1)[0]
+            return {"error": code, "message": first[9:].decode()}
+        ncols, _ = read_lenenc_int(first, 0)
+        cols = []
+        for _ in range(ncols):
+            cdef = await self.pr.recv()
+            pos = 0
+            vals = []
+            for _ in range(6):
+                v, pos = read_lenenc_str(cdef, pos)
+                vals.append(v)
+            cols.append(vals[4].decode())
+        eof = await self.pr.recv()
+        assert eof[0] == 0xFE
+        rows = []
+        while True:
+            pkt = await self.pr.recv()
+            if pkt[0] == 0xFE and len(pkt) < 9:
+                break
+            pos = 0
+            row = []
+            for _ in range(ncols):
+                if pkt[pos] == 0xFB:
+                    row.append(None)
+                    pos += 1
+                else:
+                    v, pos = read_lenenc_str(pkt, pos)
+                    row.append(v.decode())
+            rows.append(tuple(row))
+        return {"cols": cols, "rows": rows}
+
+    async def close(self):
+        await self.command(0x01)
+        self.writer.close()
+
+
+@pytest.fixture()
+def server_client():
+    async def setup():
+        srv = MySQLServer(port=0)
+        await srv.start()
+        cli = MiniClient(srv.host, srv.port)
+        await cli.connect(db="test")
+        return srv, cli
+
+    return setup
+
+
+def run(coro):
+    return asyncio.get_event_loop_policy().new_event_loop().run_until_complete(coro)
+
+
+def test_handshake_query_roundtrip(server_client):
+    async def body():
+        srv, cli = await server_client()
+        r = await cli.query("create table t (a bigint, b varchar(10))")
+        assert r.get("ok")
+        r = await cli.query("insert into t values (1, 'x'), (2, null)")
+        assert r["affected"] == 2
+        r = await cli.query("select a, b from t order by a")
+        assert r["cols"] == ["a", "b"]
+        assert r["rows"] == [("1", "x"), ("2", None)]
+        r = await cli.query("select count(*), sum(a) from t")
+        assert r["rows"] == [("2", "3")]
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+def test_error_packet(server_client):
+    async def body():
+        srv, cli = await server_client()
+        r = await cli.query("select * from nosuchtable")
+        assert "error" in r
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+def test_ping_and_init_db(server_client):
+    async def body():
+        srv, cli = await server_client()
+        await cli.command(0x0E)  # ping
+        ok = await cli.pr.recv()
+        assert ok[0] == 0x00
+        await cli.command(0x02, b"mysql")  # init_db
+        ok = await cli.pr.recv()
+        assert ok[0] == 0x00
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+async def _binary_rows(cli, stmt_id: int, value: int, bind_types: bool):
+    payload = struct.pack("<I", stmt_id) + b"\x00" + struct.pack("<I", 1)
+    payload += b"\x00"  # null bitmap
+    if bind_types:
+        payload += b"\x01" + bytes([0x08, 0x00])  # new params: longlong
+    else:
+        payload += b"\x00"  # reuse the cached types
+    payload += struct.pack("<q", value)
+    await cli.command(0x17, payload)
+    first = await cli.pr.recv()
+    ncols, _ = read_lenenc_int(first, 0)
+    for _ in range(ncols):
+        await cli.pr.recv()
+    await cli.pr.recv()  # eof
+    rows = []
+    while True:
+        pkt = await cli.pr.recv()
+        if pkt[0] == 0xFE and len(pkt) < 9:
+            break
+        # binary-protocol row: 0x00 header, null bitmap, lenenc string
+        assert pkt[0] == 0x00
+        nb = (ncols + 9) // 8
+        v, _ = read_lenenc_str(pkt, 1 + nb)
+        rows.append(v.decode())
+    return rows
+
+
+def test_prepared_statement_binary(server_client):
+    async def body():
+        srv, cli = await server_client()
+        await cli.query("create table p (a bigint, b varchar(10))")
+        await cli.query("insert into p values (1,'x'),(2,'y'),(3,'z')")
+        await cli.command(0x16, b"select b from p where a = ?")
+        resp = await cli.pr.recv()
+        assert resp[0] == 0x00
+        stmt_id = struct.unpack_from("<I", resp, 1)[0]
+        n_params = struct.unpack_from("<H", resp, 7)[0]
+        assert n_params == 1
+        for _ in range(n_params):
+            await cli.pr.recv()  # param defs
+        await cli.pr.recv()  # eof
+        assert await _binary_rows(cli, stmt_id, 2, True) == ["y"]
+        # re-execute WITHOUT re-sending types (new_params_bound_flag = 0)
+        assert await _binary_rows(cli, stmt_id, 3, False) == ["z"]
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+def test_param_count_ignores_literal_question_marks(server_client):
+    async def body():
+        srv, cli = await server_client()
+        await cli.query("create table q (a bigint, s varchar(10))")
+        await cli.query("insert into q values (1, 'who?')")
+        await cli.command(
+            0x16, b"select a from q where s = 'who?' and a = ?"
+        )
+        resp = await cli.pr.recv()
+        assert resp[0] == 0x00
+        n_params = struct.unpack_from("<H", resp, 7)[0]
+        assert n_params == 1  # the '?' inside the literal doesn't count
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+def test_concurrent_connections(server_client):
+    async def body():
+        srv, cli = await server_client()
+        await cli.query("create table c (a bigint)")
+        await cli.query("insert into c values (1)")
+        cli2 = MiniClient(srv.host, srv.port)
+        await cli2.connect(db="test")
+        r = await cli2.query("select a from c")
+        assert r["rows"] == [("1",)]
+        await cli2.close()
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+def test_trace_statement_over_the_wire(server_client):
+    """TRACE on a TPC-H-shaped query returns the span tree over the
+    MySQL protocol, and the wire layer appends its write span to the
+    finished trace."""
+    async def body():
+        srv, cli = await server_client()
+        await cli.query("create table li (k bigint, qty bigint,"
+                        " price double, flag varchar(1))")
+        rows = ", ".join(f"({i % 9}, {i % 50}, {i}.5, 'A')"
+                         for i in range(512))
+        await cli.query("insert into li values " + rows)
+        r = await cli.query(
+            "trace select flag, sum(qty), avg(price), count(*) from li"
+            " where qty < 40 group by flag")
+        assert r["cols"] == ["operation", "startTS", "duration"]
+        ops = [row[0].strip() for row in r["rows"]]
+        assert ops[0].startswith("session.execute")
+        assert "wire_read_bytes" in ops[0]  # COM_QUERY payload recorded
+        assert any(o.startswith("plan") for o in ops)
+        assert any(o.startswith("executor.next") for o in ops)
+        # json format crosses the wire too
+        r = await cli.query("trace format='json' select count(*) from li")
+        doc = json.loads(r["rows"][0][0])
+        assert doc["root"]["name"] == "session.execute"
+        # the finished trace gained a wire.write span from the server
+        sess = next(iter(srv.domain.sessions.values()))
+        tr = sess.last_trace
+        names = [sp.name for sp in tr.root.children]
+        assert "wire.write" in names
+        wired = [sp for sp in tr.root.children if sp.name == "wire.write"]
+        assert wired[0].attrs["bytes"] > 0
+        await cli.close()
+        await srv.stop()
+
+    run(body())
+
+
+#: statements of the wire parity test: every float sum is of quarters,
+#: so it is exact in any order and both packages render the same text;
+#: the DATE aggregate is a max, as the JAX package's min over a DATE is
+#: a known fault of its own (ROADMAP Queue 3, closed differences)
+PARITY_SETUP = [
+    "create table w (k bigint primary key, g bigint, x double,"
+    " d decimal(10,2), s varchar(8), dt date)",
+    "insert into w values " + ", ".join(
+        f"({i}, {i % 7}, {i * 0.25}, {i * 3 % 1000}.{i % 100:02d},"
+        f" '{'abcde'[i % 5]}{i % 3}', '1995-{1 + i % 12:02d}-{1 + i % 28:02d}')"
+        for i in range(600)),
+]
+PARITY_QUERIES = [
+    "select g, count(*), sum(x), sum(d), avg(d), max(dt), max(s)"
+    " from w where k < 500 group by g order by g",
+    "select k, x, d, s, dt from w where x > 140 and g = 3 order by k",
+    "select s, count(*), sum(x) from w group by s order by s",
+    "select count(*), sum(d), max(x) from w where dt >= '1995-06-01'",
+    "select k, d from w order by d desc, k limit 5",
+    "select 1, 2.5, 'a', null",
+]
+
+
+def _wire_rows(server_cls, sqls, engine_on: bool):
+    async def body():
+        srv = server_cls(port=0)
+        await srv.start()
+        cli = MiniClient(srv.host, srv.port)
+        await cli.connect(db="test")
+        await cli.query(f"set tidb_use_tpu = {int(engine_on)}")
+        for q in PARITY_SETUP:
+            r = await cli.query(q)
+            assert r.get("ok"), r
+        out = [await cli.query(q) for q in sqls]
+        await cli.close()
+        await srv.stop()
+        return out
+
+    return run(body())
+
+
+@pytest.mark.parametrize("engine_on", [True, False])
+def test_wire_parity_with_the_jax_package_server(engine_on):
+    """The same SQL over the wire to both packages' servers: identical
+    column names and text rows, with the device engine on and off."""
+    from tidb_tpu.server import MySQLServer as JServer
+
+    want = _wire_rows(JServer, PARITY_QUERIES, engine_on)
+    got = _wire_rows(MySQLServer, PARITY_QUERIES, engine_on)
+    for q, g, w in zip(PARITY_QUERIES, got, want):
+        assert "error" not in g, (q, g)
+        assert g["cols"] == w["cols"], q
+        assert g["rows"] == w["rows"], q
+
+
+def test_status_lists_the_microbatch_program_cache():
+    """/status reports every compiled-program cache of the port, the
+    micro-batcher's included."""
+    import tidb_tpu_torch.serving.batcher  # noqa: F401 — registers it
+    from tidb_tpu_torch.server.http_status import StatusServer
+    from tidb_tpu_torch.session import Domain
+
+    srv = StatusServer(Domain(), port=0)
+    host, port = srv.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://{host}:{port}/status", timeout=5) as r:
+            body = json.loads(r.read())
+    finally:
+        srv.stop()
+    caches = body["compiled_programs"]
+    assert {"tile", "mesh", "microbatch"} <= set(caches)
+
+
+def test_python_m_serves_on_the_cpu_and_stops():
+    """`python -m tidb_tpu_torch --engine cpu` boots a server that
+    answers `select 1` over the wire, and stops on SIGTERM."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONUNBUFFERED"] = "1"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tidb_tpu_torch", "--engine", "cpu",
+         "--port", "0", "--status-port", "0"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"listening on ([\d.]+):(\d+)", line)
+        assert m, (line, proc.stderr.read() if proc.poll() is not None
+                   else "")
+
+        async def body():
+            cli = MiniClient(m.group(1), int(m.group(2)))
+            await cli.connect()
+            r = await cli.query("select 1")
+            await cli.close()
+            return r
+
+        assert run(body())["rows"] == [("1",)]
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.monotonic()
+        assert proc.wait(timeout=60) == 0
+        assert time.monotonic() - t0 < 60
+        assert "stopped" in proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

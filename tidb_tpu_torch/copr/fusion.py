@@ -157,6 +157,7 @@ def dense_agg_results(ctx: RegionContext, gidx):
     G = an.num_groups
     m = ctx.mask
     gcount = ops.masked_segment_count(gidx, m, G)
+    spans = ops.SpanOrder(gidx, G)  # one sort for every float sum
     results = []
     for a in an.agg.aggs:
         if a.name == "count":
@@ -172,7 +173,7 @@ def dense_agg_results(ctx: RegionContext, gidx):
             st = a.partial_types()[0]
             dd = _to_state_dtype(d, a.args[0].ftype, st)
             results.append((
-                ops.masked_segment_sum(dd, gidx, mv, G),
+                ops.masked_segment_sum(dd, gidx, mv, G, spans),
                 ops.masked_segment_count(gidx, mv, G),
             ))
         elif a.name == "min":
@@ -579,12 +580,13 @@ def grouped_partial_states(aggs, arg_fn, order, sm, seg, cap,
     Counts and integer sums (decimal states are scaled int64) reduce the
     sorted, contiguous segments with a prefix sum: exact in any order,
     deterministic, and free of the atomics that a scatter into a few hot
-    slots serializes on.  Float sums keep the scatter-add
-    (`ops.masked_segment_sum`): a prefix-sum difference would round
-    differently from a direct sum."""
+    slots serializes on.  Float sums reduce each span directly
+    (`ops.span_sum`): one fixed order from run to run, and no prefix-sum
+    difference, which would round differently from a direct sum."""
     from .torch_engine import _to_state_dtype
 
     spans = _segment_spans(seg, cap)
+    lengths = spans[1] - spans[0]
 
     def count(m):
         return _sorted_segment_sum(m.to(torch.int64), spans)
@@ -603,11 +605,11 @@ def grouped_partial_states(aggs, arg_fn, order, sm, seg, cap,
         if a.name in ("sum", "avg"):
             st = a.partial_types()[0]
             dd = _to_state_dtype(d, a.args[0].ftype, st)
+            contrib = torch.where(mv, dd, torch.zeros_like(dd))
             if dd.dtype == torch.int64:
-                total = _sorted_segment_sum(
-                    torch.where(mv, dd, torch.zeros_like(dd)), spans)
+                total = _sorted_segment_sum(contrib, spans)
             else:
-                total = ops.masked_segment_sum(dd, seg, mv, cap)
+                total = ops.span_sum(contrib, lengths)
             results.append((total, count(mv)))
         elif a.name == "min":
             results.append((
@@ -632,18 +634,19 @@ def merge_grouped_partials(aggs, key_bits, key_flags, row_valid, states,
 
     `states` uses grouped_partial_states' layout per agg.  Returns
     (n_uniq, out_keys, merged_states); n_uniq > cap means the merged
-    group count blew the budget.  Counts and integer sums reduce the
-    sorted segments with a prefix sum, as grouped_partial_states does."""
+    group count blew the budget.  The sums reduce the sorted segments as
+    grouped_partial_states does: a prefix sum for counts and integer
+    sums, a direct fixed-order sum of each span for floats."""
     order, sm, skeys, seg, pos, n_uniq = sort_group_segments(
         key_bits, key_flags, row_valid, cap)
     spans = _segment_spans(seg, cap)
+    lengths = spans[1] - spans[0]
 
     def add(x, m):
-        x = x[order]
+        x = torch.where(m, x[order], torch.zeros_like(x))
         if x.dtype == torch.int64:
-            return _sorted_segment_sum(
-                torch.where(m, x, torch.zeros_like(x)), spans)
-        return ops.masked_segment_sum(x, seg, m, cap)
+            return _sorted_segment_sum(x, spans)
+        return ops.span_sum(x, lengths)
 
     merged = []
     for a, st in zip(aggs, states):

@@ -270,7 +270,11 @@ class _DeviceCache:
 
             with span("copr.transfer", col=store_ci, tile=tile_idx) as sp:
                 data, valid = _gather_tile(table, store_ci, start, end)
-                sp.set(bytes=data.nbytes + valid.nbytes, device=str(device))
+                # the trace counts devices by id (ops.device_ids: -1 is
+                # the host)
+                sp.set(bytes=data.nbytes + valid.nbytes,
+                       device=(device.index or 0) if device.type == "cuda"
+                       else -1)
                 return to_device(data, device), to_device(valid, device)
 
         return self._c.get_or_load(key, load)
@@ -688,7 +692,7 @@ _COMPILED = ProgramCache("tile")
 
 
 def _tile_core(an: _Analyzed, kind: str, col_order: List[int],
-               with_params: bool = False):
+               with_params: bool = False, batched: bool = False):
     """The per-tile program, composed from the fusion phase emitters
     (copr/fusion.py) so every pushed phase (filter, project, agg, topN)
     emits into one shared context.
@@ -697,13 +701,24 @@ def _tile_core(an: _Analyzed, kind: str, col_order: List[int],
     trailing tensors (hoisted predicate parameters, serving/params.py)
     are passed only when `with_params`.  Returns (mask, projection
     outputs or None) for `filter`, (gcount, results) for dense `agg` and
-    (tile-local row indices, count) for `topn`."""
+    (tile-local row indices, count) for `topn`.
+
+    `batched` is the micro-batcher's program (serving/batcher.py; the
+    JAX package vmaps this core): pi/pf are stacked as [B, P] int64 and
+    [B, Q] f64, one row per statement, while the tile, lo, hi and
+    del_mask are shared.  The predicate mask is then [B, TILE], and the
+    dense aggregation reduces B x G segments at once (ops/segment.py),
+    so the whole batch is one sequence of device ops per tile with no
+    loop over members: [B, TILE] masks for `filter`, (gcount [B, G],
+    results with [B, G] leaves) for dense `agg`."""
     from . import fusion
 
     if an.lookups:
         # the broadcast lookup join runs in the whole-table program only;
         # the per-region rung hands these regions to the CPU engine
         raise DeviceUnsupported("join lookup needs the mesh engine")
+    if batched and (kind not in ("filter", "agg") or not with_params):
+        raise DeviceUnsupported(f"batched {kind} program")
     n = TILE
 
     def region_ctx(datas, valids, lo, hi, del_mask, params):
@@ -717,6 +732,9 @@ def _tile_core(an: _Analyzed, kind: str, col_order: List[int],
             an=an, cols=env, n=n,
             mask=(ar >= lo) & (ar < hi) & del_mask)
         fusion.selection_mask(ctx)
+        if batched and ctx.mask.dim() == 1:
+            # no predicate reads a parameter: one mask serves every member
+            ctx.mask = ctx.mask.expand(params[0].shape[0], n)
         return ctx
 
     if kind == "filter":
@@ -752,6 +770,31 @@ def _tile_core(an: _Analyzed, kind: str, col_order: List[int],
         return fn
 
     raise DeviceUnsupported(kind)
+
+
+def _np_batch(tensors) -> List[np.ndarray]:
+    """Read a list of [B, ...] device tensors back in ONE copy: each is
+    flattened per member into int64 words (floats bit-cast, narrower
+    ints and bools widened), the words travel in one `.cpu()`, and the
+    host splits them back into arrays of the original dtypes and
+    shapes."""
+    b = tensors[0].shape[0]
+    words = []
+    for t in tensors:
+        t = t.reshape(b, -1)
+        words.append(t.to(torch.float64).view(torch.int64)
+                     if t.dtype.is_floating_point else t.to(torch.int64))
+    host = torch.cat(words, 1).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        k = t[0].numel()
+        part = np.ascontiguousarray(host[:, off:off + k])
+        off += k
+        if t.dtype.is_floating_point:
+            part = part.view(np.float64)
+        np_dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(part.astype(np_dt, copy=False).reshape(tuple(t.shape)))
+    return out
 
 
 def _build_tile_fn(an: _Analyzed, kind: str, col_order: List[int],
@@ -943,11 +986,11 @@ def run_base_torch(table, dag: DAG, start: int, end: int,
         elif kind == "agg":
             gcount, results = out
             with span("copr.readback") as rsp:
-                gh = _np_tree(gcount)
-                rh = [(t, _np_tree(r)) for t, r in results]
-                rsp.set(bytes=gh.nbytes + sum(
-                    (x.nbytes if not isinstance(x, tuple)
-                     else sum(y.nbytes for y in x)) for _t, x in rh))
+                vals = [r for _t, r in results]
+                host = _np_tree((gcount,) + tuple(agg_leaves(vals)))
+                gh = host[0]
+                rh = agg_states([t for t, _r in results], vals, host[1:])
+                rsp.set(bytes=sum(h.nbytes for h in host))
             agg_accum = _merge_device_agg(agg_accum, gh, rh, table, an,
                                           base0)
         else:  # topn
@@ -979,9 +1022,34 @@ def run_base_torch(table, dag: DAG, start: int, end: int,
 
 
 def _np_tree(r):
+    """Host copy of a tensor, or of a tuple of tensors in ONE copy
+    (`_np_batch`, a batch of one)."""
     if isinstance(r, tuple):
-        return tuple(x.cpu().numpy() for x in r)
+        return tuple(h[0] for h in _np_batch([x[None] for x in r]))
     return r.cpu().numpy()
+
+
+def agg_leaves(results) -> list:
+    """The tensors of an aggregation's results (`_agg_tags` layout),
+    flattened in order."""
+    out = []
+    for r in results:
+        out.extend(r if isinstance(r, tuple) else (r,))
+    return out
+
+
+def agg_states(tags, results, leaves) -> list:
+    """(tag, state) pairs in `_agg_tags` layout from the host copies of
+    `agg_leaves(results)`."""
+    states, i = [], 0
+    for tag, r in zip(tags, results):
+        if isinstance(r, tuple):
+            states.append((tag, tuple(leaves[i:i + len(r)])))
+            i += len(r)
+        else:
+            states.append((tag, leaves[i]))
+            i += 1
+    return states
 
 
 def _gather_rows(table, scan: TableScanIR, base0: int,

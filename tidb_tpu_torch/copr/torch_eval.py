@@ -94,11 +94,17 @@ def compile_expr(e: Expression, cols: Dict[int, TVal], n: int,
 def _param_const(e: Constant, slot, params, n: int, dev) -> TVal:
     """A hoisted constant (serving/params.py ParamConst): its value reads
     from the runtime parameter vectors at EXECUTION time, so
-    parameter-different queries of one shape class share one plan."""
+    parameter-different queries of one shape class share one plan.
+    Vectors of shape [B, P] / [B, Q] carry a batch of statements (the
+    micro-batcher's program): the value is then [B, n], member b's
+    parameter broadcast over the rows, and every expression over it
+    broadcasts to [B, n] too."""
     which, idx = slot
     pi, pf = params
-    src = pf[idx] if which == "f" else pi[idx]
-    return src.to(_dtype_for(e.ftype)).expand(n), _ones(n, dev)
+    src = (pf if which == "f" else pi)[..., idx].to(_dtype_for(e.ftype))
+    if src.dim() == 1:
+        return src[:, None].expand(-1, n), _ones(n, dev)
+    return src.expand(n), _ones(n, dev)
 
 
 def _const(e: Constant, n: int, dev) -> TVal:

@@ -240,9 +240,9 @@ class SelectResult:
                     return
                 # micro-batch rung (tidb_tpu/serving): identical-shape
                 # point/agg statements arriving within the batching
-                # window coalesce into one vmapped device dispatch; None
-                # when ineligible/disabled or on a benign batch failure
-                # (the solo rungs below re-run with identical results)
+                # window coalesce into one batched per-tile program;
+                # None when ineligible or disabled (a runtime error of
+                # the batched program reaches the statement)
                 from ..serving import try_run_microbatch
 
                 mb = try_run_microbatch(self.storage, self.req)

@@ -54,6 +54,8 @@ from .segment import (  # noqa: E402
     masked_segment_max,
     masked_segment_argfirst,
     segment_min,
+    span_sum,
+    SpanOrder,
 )
 from .topk import masked_top_k  # noqa: E402
 
@@ -66,6 +68,8 @@ __all__ = [
     "masked_segment_min",
     "masked_segment_max",
     "masked_segment_argfirst",
+    "SpanOrder",
     "segment_min",
+    "span_sum",
     "masked_top_k",
 ]

@@ -123,9 +123,11 @@ def microbatch_max() -> int:
 
 def try_run_microbatch(storage, req):
     """Distsql hook: serve `req` through the micro-batcher when eligible;
-    None when ineligible/disabled or when the batch attempt failed benignly
-    (the caller falls through to the mesh / fan-out rungs).  Lifecycle
-    errors (kill/timeout/shutdown) propagate."""
-    # the micro-batcher (batcher.py) is not part of the port yet: every
-    # request declines and the solo rungs serve it, whatever the window
-    return None
+    None when ineligible or disabled (the caller falls through to the
+    mesh / fan-out rungs).  Lifecycle errors (kill/timeout/shutdown) and
+    runtime errors of the batched device program propagate."""
+    if microbatch_window_s() <= 0.0:
+        return None
+    from .batcher import try_run_batched
+
+    return try_run_batched(storage, req)
