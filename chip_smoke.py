@@ -16,8 +16,8 @@ port's paths end to end from SQL over a synthetic lineitem:
   (dense aggregation), `ck1` (Q1 grouped by a computed string key,
   lower(l_returnflag): sort mode, K1 with an int32 mapping) and `ck2`
   (a Q6-shaped query grouped by ascii(l_linestatus): K1 with an int64
-  mapping); hot only, `sa` (sort mode over ~100 k l_orderkey groups)
-  and `tn` (a two-key TopN);
+  mapping); hot only, `sa` (sort mode over ~100 k l_orderkey groups),
+  `tn` (a two-key TopN) and `mf` (a filter of a few hundred rows);
 - at SF1 (6 M rows), TPC-H Q18's inner aggregation `q18i` (~1.5 M
   groups, beyond the sort-mode budget of 2**17 groups per dispatch) and
   `q18p`, the same with Q1's ship-date filter: both overflow the
@@ -62,6 +62,16 @@ port's paths end to end from SQL over a synthetic lineitem:
   on `engine:microbatch`, batches must hold more than one member, and
   the solo pass must move no batch counter.  Statements/s, p50/p99
   latency and the mean batch size are printed for each pass;
+- the mesh (S > 1): MESH_S = 4 positions on the one card
+  (`ops.use_device("cuda", shards=4)`): the SF10 cells Q1, Q6, ck1, tn
+  and the filter `mf`, hot and cold (K1 and K2 on per-shard inputs),
+  each against numpy and its S = 1 rows; failover on the card (position
+  3 fails once during Q1: the mesh rebuilds over 3 positions, nothing
+  of position 3 stays cached, and after the cooldowns expire Q1 runs on
+  4 again); mA10 at 4 and at 2 positions, with the peak device memory
+  of each (the static exchange capacities hold 4x and 2x S = 1's
+  slots); Domain T's t3, t10 and tsj; and fl_dense, 5 runs
+  bit-identical;
 - fixed-order float sums: a table of 16,777,216 doubles grouped by 100
   keys (past the 32 groups whose sums unroll), in dense mode (a stored
   key) and in sort mode (a computed key, `k % 100`), 5 runs each: the
@@ -134,6 +144,10 @@ SA = ("select l_orderkey, sum(l_quantity), count(*) from lineitem"
 TN = ("select l_orderkey, l_extendedprice from lineitem"
       " where l_shipdate >= '1995-03-15'"
       " order by l_extendedprice desc, l_orderkey limit 10")
+#: a filter statement of a few hundred rows at SF10 (the fused mask and
+#: the host gather of the selected handles), at S = 1 and on the mesh
+MF = ("select l_orderkey, l_extendedprice, l_discount from lineitem"
+      " where l_extendedprice < 901.00")
 Q18I = ("select l_orderkey, sum(l_quantity) from lineitem"
         " group by l_orderkey having sum(l_quantity) > 300")
 Q18P = ("select l_orderkey, sum(l_quantity) from lineitem"
@@ -239,6 +253,13 @@ SRV_SHAPES = {
 }
 SRV_COUNTERS = ("serving_batches_total", "serving_batched_stmts_total",
                 "serving_batch_errors_total")
+
+#: the mesh phase: S positions on the one card (`ops.use_device("cuda",
+#: shards=MESH_S)`); mA10 runs at each of MESH_MA10_S: at 4 its static
+#: exchange capacities hold 4x S = 1's slots, at 2 twice (PERF.md)
+MESH_S = 4
+MESH_MA10_S = (4, 2)
+MESH_T = ("t3", "t10", "tsj")
 
 #: the float phase: FL_ROWS doubles over FL_GROUPS keys (above the
 #: unrolled sums' 32 groups), each statement run FL_RUNS times
@@ -601,7 +622,7 @@ def numpy_reference(n: int) -> dict:
     int64 per-group counts and scaled sums (exact, folded into Python
     ints), averages rounded half up to the output's scale 6, values
     rendered as the session renders a decimal (scaled int / 10**scale).
-    Returns name -> rows for q1, q6, ck1, ck2, sa and tn."""
+    Returns name -> rows for q1, q6, ck1, ck2, sa, tn and mf."""
     import numpy as np
 
     from tidb_tpu_torch.tpch_data import LINEITEM_DICTS, lineitem_chunks
@@ -620,6 +641,7 @@ def numpy_reference(n: int) -> dict:
     sa_qty = np.zeros(SA_MAX + 1, np.int64)
     sa_cnt = np.zeros(SA_MAX + 1, np.int64)
     tn = []  # (price, orderkey) candidates
+    mf = []  # MF's rows
     for (ok, qty, price, disc, tax, rf, ls, ship) in lineitem_chunks(
             n, SEED):
         m = ship <= q1_cut
@@ -650,6 +672,9 @@ def numpy_reference(n: int) -> dict:
         p, o = price[s], ok[s]
         kth = np.partition(p, len(p) - 10)[len(p) - 10]
         tn.extend(zip(p[p >= kth].tolist(), o[p >= kth].tolist()))
+        s = price < 90_100
+        mf.extend((int(a), dec(int(b), 2), dec(int(c), 2))
+                  for a, b, c in zip(ok[s], price[s], disc[s]))
 
     out = {"q1": [], "ck1": []}
     for k in range(G):
@@ -673,6 +698,7 @@ def numpy_reference(n: int) -> dict:
                  for k in np.flatnonzero(sa_cnt)]
     tn.sort(key=lambda t: (-t[0], t[1]))
     out["tn"] = [(o, dec(p, 2)) for p, o in tn[:10]]
+    out["mf"] = mf
     return out
 
 
@@ -1312,6 +1338,7 @@ def join_phase(profiling: bool):
         profile_queries(sess, "T", t_cells)
     sess.execute("set tidb_allow_mpp = 1")
     tc.update(t_mpp_cells(sess, want, profiling))
+    tm = t_mesh_cells(sess, tc, profiling)
     reset_device_state()
     tc.update(srv_phase(sess, profiling))
     del sess
@@ -1369,6 +1396,7 @@ def join_phase(profiling: bool):
     gc.collect()
     reset_device_state()
     cells = {f"T {k}": v for k, v in tc.items()}
+    cells.update({f"T {k}": v for k, v in tm.items()})
     cells.update({f"J hot {k}": v for k, v in hot.items()})
     cells.update({f"J cold {k}": v for k, v in cold.items()})
     cells.update(pt)
@@ -1841,7 +1869,8 @@ def float_phase(profiling: bool) -> dict:
             raise AssertionError(f"{name}: route {eng}")
         rel = max(abs(r[2] - fsum[r[0]]) / abs(fsum[r[0]]) for r in got)
         out[name] = {"steady_s": statistics.median(times[1:]),
-                     "first_s": times[0], "max_rel_err": rel}
+                     "first_s": times[0], "max_rel_err": rel,
+                     "rows": got}
         log(f"{name}: {FL_RUNS} runs bit-identical, rows == math.fsum "
             f"after _norm (max relative error {rel:.3e}); first "
             f"{times[0] * 1e3:.1f} ms, steady median "
@@ -1849,6 +1878,8 @@ def float_phase(profiling: bool) -> dict:
     if profiling:
         profile_queries(sess, "fl", [("fl_dense", FL_DENSE),
                                      ("fl_sort", FL_SORT)])
+    out[f"fl_dense S={MESH_S}"] = fl_mesh(sess, want,
+                                          out["fl_dense"]["rows"])
     # the dense shape micro-batched: four literals of a hoisted predicate
     sqls = [FL_BATCH.format(c) for c in FL_BATCH_CUTS]
     solo = [sess.query(q) for q in sqls]
@@ -1954,6 +1985,267 @@ def float_op_times() -> dict:
     del x, gidx, mask, xs
     torch.cuda.empty_cache()
     return {"rows": FL_OP_ROWS, **ms, "index_add_rel_diff": rel}
+
+
+# ---------------------------------------------------------------------------
+# the mesh phase: S > 1 positions on the one card
+# ---------------------------------------------------------------------------
+
+
+def mesh_ids():
+    from tidb_tpu_torch.copr import parallel
+
+    return parallel._MESH.ids if parallel._MESH is not None else ()
+
+
+def compare_s1(label: str, res: dict, s1: dict, S: int):
+    """Each S-position cell's rows against the same cell's S = 1 rows
+    (ints and decimals exactly, floats after `_norm`), and its steady
+    wall beside S = 1's."""
+    for name, r in res.items():
+        if not same_rows(norm(r["rows"]), norm(s1[name]["rows"]),
+                         name in ORDERED):
+            raise AssertionError(f"{label} {name}: rows != S = 1 rows")
+        ratio = r["steady_s"] / s1[name]["steady_s"]
+        r["s1_steady_s"] = s1[name]["steady_s"]
+        log(f"{label} {name}: rows == S = 1 rows; steady "
+            f"{r['steady_s'] * 1e3:.1f} ms at S = {S} vs "
+            f"{s1[name]['steady_s'] * 1e3:.1f} ms at S = 1 "
+            f"({ratio:.2f}x)")
+
+
+def mesh_failover(sess, want_q1, S: int) -> dict:
+    """Failover on the card: position 3 fails once during Q1 (the
+    `mesh/device_error` site); the rows must equal, the rebuilt mesh
+    hold the other S - 1 positions, no column cache hold anything of
+    position 3, and `mesh_failover_retries_total` move; after the
+    cooldowns expire Q1 runs on all S positions again."""
+    from tidb_tpu_torch.copr import parallel
+    from tidb_tpu_torch.copr.device_health import (DEVICE_HEALTH,
+                                                   DeviceFailure)
+    from tidb_tpu_torch.layout import COLD_CACHE
+    from tidb_tpu_torch.metrics import REGISTRY
+    from tidb_tpu_torch.store.fault import failpoint, once
+    from tidb_tpu_torch.tpch_data import LINEITEM_Q1
+
+    r0 = REGISTRY.snapshot().get("mesh_failover_retries_total", 0)
+    t0 = time.perf_counter()
+    with failpoint("mesh/device_error", once(DeviceFailure(
+            "position 3 halted mid-scan", device_ids=(3,)))):
+        rows = sess.query(LINEITEM_Q1)
+    failed_s = time.perf_counter() - t0
+    r1 = REGISTRY.snapshot().get("mesh_failover_retries_total", 0)
+    ids = mesh_ids()
+    held = ([k for k in parallel.MESH_CACHE._cache if 3 in k[3]]
+            + [k for k in COLD_CACHE.items_view if 3 in k[3]])
+    if rows != want_q1 or len(ids) != S - 1 or 3 in ids or held \
+            or r1 <= r0:
+        raise AssertionError(f"mesh failover: rows ok {rows == want_q1}, "
+                             f"mesh {ids}, held {held}, retries {r1 - r0}")
+    DEVICE_HEALTH.expire_cooldowns()
+    t0 = time.perf_counter()
+    again = sess.query(LINEITEM_Q1)
+    probe_s = time.perf_counter() - t0
+    if again != want_q1 or len(mesh_ids()) != S:
+        raise AssertionError(f"mesh failover: after the probe mesh "
+                             f"{mesh_ids()}")
+    DEVICE_HEALTH.reset()
+    log(f"mesh failover: position 3 failed during Q1; rebuilt over {ids}, "
+        f"rows == numpy reference, nothing of position 3 cached, "
+        f"mesh_failover_retries_total +{r1 - r0}, {failed_s * 1e3:.1f} ms; "
+        f"after the probe Q1 on {mesh_ids()} in {probe_s * 1e3:.1f} ms")
+    return {"failed_s": failed_s, "probe_s": probe_s,
+            "retries": r1 - r0, "rebuilt": list(ids)}
+
+
+def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
+               shards=MESH_S):
+    """The SF10 cells at `shards` positions on the one card (None: one
+    position a visible card), hot and cold: Q1, Q6, ck1, tn and the
+    filter mf, each against numpy and against its S = 1 rows, on
+    `engine:mesh` with no fallback counter moved; then failover.
+    Returns (cells, K1 inputs, K2 inputs), the inputs as
+    `record_remap_inputs` / `record_unpack_inputs` key them."""
+    import torch
+
+    from tidb_tpu_torch import ops
+    from tidb_tpu_torch.layout import hot_cap_bytes, set_hot_cap_bytes
+    from tidb_tpu_torch.tpch_data import LINEITEM_Q1, LINEITEM_Q6
+
+    cells = [("q1", LINEITEM_Q1), ("q6", LINEITEM_Q6), ("ck1", CK1),
+             ("tn", TN), ("mf", MF)]
+    S = shards or torch.cuda.device_count()
+    label = f"S={S}" if shards else f"{S} cards"
+    reset_device_state()
+    ops.use_device("cuda", shards=shards)
+    default_cap = hot_cap_bytes()
+    try:
+        fail0 = failure_counters()
+        seen_k1, restore_k1 = record_remap_inputs()
+        try:
+            hot = run_queries(sess, f"{label} hot", SF10_ROWS, cells)
+        finally:
+            restore_k1()
+        if len(mesh_ids()) != S:
+            raise AssertionError(f"{label}: mesh {mesh_ids()}")
+        check_rows(f"{label} hot", hot, want)
+        compare_s1(f"{label} hot", hot, s1_hot, S)
+        for name, r in hot.items():
+            if r["launches"]["unpack_codes"] or \
+                    (r["launches"]["remap_codes"] > 0) != (name == "ck1"):
+                raise AssertionError(f"{label} hot {name}: launches "
+                                     f"{r['launches']}")
+        if profiling:
+            profile_queries(sess, f"{label} hot", cells)
+        reset_device_state()
+        set_hot_cap_bytes(cold_cap(table))
+        seen_k2, restore = record_unpack_inputs()
+        seen_k1c, restore_k1 = record_remap_inputs()
+        try:
+            cold = run_queries(sess, f"{label} cold", SF10_ROWS, cells)
+            if profiling:
+                profile_queries(sess, f"{label} cold", cells)
+        finally:
+            restore()
+            restore_k1()
+        check_rows(f"{label} cold", cold, want)
+        compare_s1(f"{label} cold", cold,
+                   {**s1_hot, **s1_cold}, S)
+        for name, r in cold.items():
+            if name in ("q1", "q6", "ck1") and \
+                    r["launches"]["unpack_codes"] <= 0:
+                raise AssertionError(f"{label} cold {name}: no K2 launch")
+        fail1 = failure_counters()
+        if fail1 != fail0:
+            raise AssertionError(f"{label}: fallback counters moved: "
+                                 f"{fail0} -> {fail1}")
+        fo = mesh_failover(sess, want["q1"], S)
+    finally:
+        set_hot_cap_bytes(default_cap)
+        reset_device_state()
+        ops.use_device("cuda")
+    for key, rec in seen_k1c.items():
+        if key in seen_k1:
+            seen_k1[key][0] += rec[0]
+        else:
+            seen_k1[key] = rec
+    out = {f"{label} hot {k}": v for k, v in hot.items()}
+    out.update({f"{label} cold {k}": v for k, v in cold.items()})
+    out[f"{label} failover"] = {**fo, "launches": {"remap_codes": 0,
+                                                   "unpack_codes": 0}}
+    return out, seen_k1, seen_k2
+
+
+def ma10_mesh(sess, s1: dict, want: dict, profiling: bool):
+    """mA10 at MESH_MA10_S positions (MESH_S, and 2, whose static
+    exchange capacities are half as large): rows against numpy and S = 1,
+    on its rung, with the peak device memory of each.  Returns (cells,
+    K1 inputs)."""
+    import torch
+
+    from tidb_tpu_torch import ops
+
+    out, seen = {}, {}
+    for S in MESH_MA10_S:
+        label = f"S={S}"
+        reset_device_state()
+        ops.use_device("cuda", shards=S)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rec, restore = record_remap_inputs()
+            try:
+                res = mpp_cells(sess, label, SF10_ROWS,
+                                [("mA10", MA10, "MPPJoin",
+                                  "mpp_joins_shuffle_grouped_total")], want)
+            finally:
+                restore()
+            peak = torch.cuda.max_memory_allocated()
+            if len(mesh_ids()) != S:
+                raise AssertionError(f"{label} mA10: mesh {mesh_ids()}")
+            compare_s1(label, res, s1, S)
+            res["mA10"]["peak_bytes"] = peak
+            log(f"{label} mA10: peak device memory {peak} bytes "
+                f"({peak / 2**30:.2f} GiB) against S = 1's "
+                f"{s1['mA10']['peak_bytes'] / 2**30:.2f} GiB")
+            if res["mA10"]["launches"]["remap_codes"] <= 0:
+                raise AssertionError(f"{label} mA10: K1 launches "
+                                     f"{res['mA10']['launches']}")
+            if profiling:
+                profile_queries(sess, label, [("mA10", MA10)])
+        finally:
+            reset_device_state()
+            ops.use_device("cuda")
+        out[f"{label} mA10"] = res["mA10"]
+        for key, r in rec.items():
+            if key in seen:
+                seen[key][0] += r[0]
+            else:
+                seen[key] = r
+    return out, seen
+
+
+def t_mesh_cells(sess, s1: dict, profiling: bool) -> dict:
+    """Domain T's join trees t3, t10 and tsj at MESH_S positions, against
+    their S = 1 rows (which equal the host engine's and, for t3 and
+    tsj, numpy's)."""
+    from tidb_tpu_torch import ops
+    from tidb_tpu_torch.tpch_data import TPCH_QUERIES
+
+    sql = {"t3": TPCH_QUERIES["q3"], "t10": TPCH_QUERIES["q10"], "tsj": SJ}
+    cells = [(n, sql[n], "MPPJoinTree", "mpp_tree_joins_total")
+             for n in MESH_T]
+    label = f"T S={MESH_S}"
+    reset_device_state()
+    ops.use_device("cuda", shards=MESH_S)
+    try:
+        res = mpp_cells(sess, label, int(8000 * T_SCALE), cells,
+                        {n: s1[n]["rows"] for n in MESH_T}, reps=3)
+        if len(mesh_ids()) != MESH_S:
+            raise AssertionError(f"{label}: mesh {mesh_ids()}")
+        compare_s1(label, res, s1, MESH_S)
+        if profiling:
+            profile_queries(sess, label, [(c[0], c[1]) for c in cells])
+    finally:
+        reset_device_state()
+        ops.use_device("cuda")
+    return {f"S={MESH_S} {k}": v for k, v in res.items()}
+
+
+def fl_mesh(sess, want, s1_dense) -> dict:
+    """fl_dense at MESH_S positions, FL_RUNS runs: every run's rows must
+    have the same bits (float partials merge in shard order), and equal
+    math.fsum and the S = 1 rows after `_norm`."""
+    from tidb_tpu_torch import ops
+
+    ops.use_device("cuda", shards=MESH_S)
+    try:
+        runs, times = [], []
+        for _ in range(FL_RUNS):
+            t0 = time.perf_counter()
+            runs.append(sess.query(FL_DENSE))
+            times.append(time.perf_counter() - t0)
+        if len(mesh_ids()) != MESH_S:
+            raise AssertionError(f"fl_dense S={MESH_S}: mesh {mesh_ids()}")
+        eng = engines(sess, FL_DENSE)
+    finally:
+        reset_device_state()
+        ops.use_device("cuda")
+    bits = {repr(sorted(r, key=str)) for r in runs}
+    if len(bits) != 1:
+        raise AssertionError(f"fl_dense S={MESH_S}: {len(bits)} different "
+                             f"results in {FL_RUNS} runs")
+    if norm(runs[0]) != want or norm(runs[0]) != norm(s1_dense):
+        raise AssertionError(f"fl_dense S={MESH_S}: rows != math.fsum / "
+                             "S = 1 after _norm")
+    if not eng or not all("engine:mesh" in e for e in eng):
+        raise AssertionError(f"fl_dense S={MESH_S}: route {eng}")
+    steady = statistics.median(times[1:])
+    log(f"fl_dense S={MESH_S}: {FL_RUNS} runs bit-identical, rows == "
+        f"math.fsum and S = 1 after _norm; first {times[0] * 1e3:.1f} ms, "
+        f"steady median {steady * 1e3:.1f} ms")
+    return {"steady_s": steady, "first_s": times[0]}
 
 
 def profile_queries(sess, label: str, queries, run=None):
@@ -2082,13 +2374,16 @@ def cold_cap(table) -> int:
     return cap
 
 
-def kernel_entry(name: str, launches: int, on_path: list) -> dict:
+def kernel_entry(name: str, launches: int, on_path: list,
+                 pick_from: list) -> dict:
     """One kernel's entry of the `kernels` line: the numbers measured on
-    the input the path launched most (the larger n on a tie)."""
+    the input of `pick_from` (the S = 1 cells' inputs, with their S = 1
+    calls) the path launched most (the larger n on a tie); the error
+    over every input."""
     from tidb_tpu_torch.copr.cuda import KERNELS
 
     _fn, _plain, source, replaces = KERNELS[name]
-    k = max(on_path, key=lambda r: (r["calls"], r["n"]))
+    k = max(pick_from, key=lambda r: (r["calls"], r["n"]))
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
@@ -2167,7 +2462,7 @@ def main(argv) -> int:
 
     both = [("q1", LINEITEM_Q1), ("q6", LINEITEM_Q6), ("ck1", CK1),
             ("ck2", CK2)]
-    hot_only = [("sa", SA), ("tn", TN)]
+    hot_only = [("sa", SA), ("tn", TN), ("mf", MF)]
 
     # hot deployment: every column resident, no unpack launch
     fail0 = failure_counters()
@@ -2236,6 +2531,14 @@ def main(argv) -> int:
     set_hot_cap_bytes(default_cap)
     ma10, seen_k1_mpp = ma10_phase(sess, profiling)
 
+    # the mesh: MESH_S positions on the one card, then mA10 at each of
+    # MESH_MA10_S; K1's and K2's inputs there join the path's inputs
+    mesh, seen_k1_mesh, seen_k2_mesh = mesh_phase(
+        sess, table, want, hot, cold, profiling)
+    ma10_m, seen_k1_ma10m = ma10_mesh(
+        sess, ma10, {"mA10": ma10["mA10"]["rows"]}, profiling)
+    mesh.update(ma10_m)
+
     # the join cells
     del sess, table, d
     gc.collect()
@@ -2247,8 +2550,24 @@ def main(argv) -> int:
         else:
             seen[key] = rec
     fl = float_phase(profiling)
+    # the S = 1 cells' calls a K2 input (bits, n): they pick the
+    # headline input of the kernels line, as before the mesh cells
+    s1_k2 = {}
+    for key, rec in seen.items():
+        s1_k2[key[:2]] = s1_k2.get(key[:2], 0) + rec[0]
+    s1_k1 = {}
+    for key, rec in (list(seen_k1.items()) + list(seen_k1_cold.items())
+                     + list(seen_k1_mpp.items())):
+        s1_k1[key] = s1_k1.get(key, 0) + rec[0]
+    for key, rec in seen_k2_mesh.items():
+        if key in seen:
+            seen[key][0] += rec[0]
+        else:
+            seen[key] = rec
     on_path_k2 = path_kernel_phase(seen)
-    for key, rec in list(seen_k1_cold.items()) + list(seen_k1_mpp.items()):
+    for key, rec in (list(seen_k1_cold.items()) + list(seen_k1_mpp.items())
+                     + list(seen_k1_mesh.items())
+                     + list(seen_k1_ma10m.items())):
         if key in seen_k1:
             seen_k1[key][0] += rec[0]
         else:
@@ -2256,11 +2575,20 @@ def main(argv) -> int:
     on_path_k1 = path_k1_phase(seen_k1)
 
     cells = (list(hot.values()) + list(cold.values()) + list(q18.values())
-             + list(ma10.values()) + list(joins.values())
-             + list(fl.values()))
+             + list(ma10.values()) + list(mesh.values())
+             + list(joins.values()) + list(fl.values()))
     k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
     k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
-    k1 = kernel_entry("remap_codes", k1_launches, on_path_k1)
+    # the launches of the mesh cells alone (S = MESH_S, and mA10 at
+    # each of MESH_MA10_S), and the inputs there
+    mesh_k1 = sum(r["launches"]["remap_codes"] for r in mesh.values())
+    mesh_k2 = sum(r["launches"]["unpack_codes"] for r in mesh.values())
+    if mesh_k1 <= 0 or mesh_k2 <= 0:
+        raise AssertionError(f"mesh: K1 {mesh_k1}, K2 {mesh_k2} launches")
+    k1 = kernel_entry("remap_codes", k1_launches, on_path_k1, [
+        dict(r, calls=s1_k1[key]) for r in on_path_k1
+        for key in [(f"torch.{r['code']}", f"torch.{r['map']}", r["cap"],
+                     r["n"])] if key in s1_k1])
     # K1 on the MPP path's input too: mA10's joined rows
     mpp_key = next(iter(seen_k1_mpp))
     k1_mpp = next(r for r in on_path_k1 if r["n"] == mpp_key[3]
@@ -2270,9 +2598,27 @@ def main(argv) -> int:
         "n", "code", "map", "cap", "calls", "ms", "plain_ms", "bound_ms",
         "library_ms", "max_abs_err")}
     k1["mpp_launches"] = ma10["mA10"]["launches"]["remap_codes"]
-    kernels = {"kernels": [
-        k1, kernel_entry("unpack_codes", k2_launches, on_path_k2),
-    ]}
+    k2 = kernel_entry("unpack_codes", k2_launches, on_path_k2, [
+        dict(r, calls=s1_k2[(r["bits"], r["n"])]) for r in on_path_k2
+        if (r["bits"], r["n"]) in s1_k2])
+    mesh_keys = {"remap_codes": (set(seen_k1_mesh) | set(seen_k1_ma10m),
+                                 lambda r, k: (r["code"], r["map"],
+                                               r["cap"], r["n"])
+                                 == (k[0][6:], k[1][6:], k[2], k[3])),
+                 "unpack_codes": (set(seen_k2_mesh),
+                                  lambda r, k: (r["bits"], r["n"])
+                                  == (k[0], k[1]))}
+    for entry, launches, on_path in ((k1, mesh_k1, on_path_k1),
+                                     (k2, mesh_k2, on_path_k2)):
+        keys, match = mesh_keys[entry["name"]]
+        rows = [r for r in on_path if any(match(r, k) for k in keys)]
+        entry["mesh_launches"] = launches
+        entry["mesh_inputs"] = [{x: r.get(x) for x in (
+            "n", "bits", "code", "map", "cap", "calls", "ms", "plain_ms",
+            "bound_ms", "max_abs_err") if x in r} for r in rows]
+        if not rows or any(r["max_abs_err"] for r in rows):
+            raise AssertionError(f"{entry['name']}: mesh inputs {rows}")
+    kernels = {"kernels": [k1, k2]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -145,3 +145,32 @@ def test_float_segment_sums_are_bit_identical_on_card(card, G):
         host = masked_segment_sum(data.cpu(), gidx.cpu(), mask.cpu(),
                                   G).numpy()
         np.testing.assert_allclose(runs[0], host, rtol=1e-12, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_two_shard_mesh_on_card_equals_one_shard(card):
+    """Q6 from SQL and a pair join's exchange at
+    `use_device("cuda", shards=2)` (two mesh positions on the one card)
+    give the rows of S = 1; `exchange` moves each bucket to its shard."""
+    from tidb_tpu_torch import ops
+    from tidb_tpu_torch.copr import parallel as pl
+    from tidb_tpu_torch.mpp import exchange as ex
+    from tidb_tpu_torch.tpch_data import LINEITEM_Q6, build_lineitem
+
+    sess = build_lineitem(1 << 20, regions=4, seed=7)
+    sess.execute("set tidb_use_tpu = 1")
+    one = sess.query(LINEITEM_Q6)
+    try:
+        ops.use_device("cuda", shards=2)
+        two = sess.query(LINEITEM_Q6)
+        assert pl._MESH is not None and pl._MESH.size == 2
+        g = torch.Generator(device=card).manual_seed(5)
+        packs = [torch.randint(0, 99, (2, 1000), device=card, generator=g)
+                 for _ in range(2)]
+        recv = ex.exchange(packs)
+        for d in range(2):
+            assert torch.equal(recv[d], torch.cat([packs[0][d],
+                                                   packs[1][d]]))
+    finally:
+        ops.use_device("cuda")
+    assert one and two == one

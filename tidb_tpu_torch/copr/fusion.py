@@ -15,9 +15,10 @@ the torch engine:
   whole-table program (`parallel._build_mesh_core`) composes them, so
   scan→filter→project→agg→topN runs as one sequence of device ops whose
   intermediates never leave the card; the per-tile program
-  (`torch_engine._tile_core`) composes the same emitters.  With one card
-  the cross-shard merge of the JAX package's mesh (psum) is the
-  identity.
+  (`torch_engine._tile_core`) composes the same emitters.  Each mesh
+  shard runs them over its own rows; the cross-shard merge of the JAX
+  package's psum is `ops.psum`, a sum in shard order
+  (`parallel._merge_shard_agg`).
 
 - **Computed keys and dictionary predicates** (`build_key_remap`,
   `dict_pred_codes`): a function of one dictionary-encoded string

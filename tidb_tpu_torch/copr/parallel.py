@@ -1,37 +1,50 @@
-"""Whole-table coprocessor scans on one card: one fused device pass.
+"""Whole-table coprocessor scans over the device mesh: one fused pass
+a shard, merged across shards.
 
 The reference implements a distributed scan fan-out + partial/final
 merge (store/tikv/coprocessor.go:220-560 buildCopTasks/worker pool;
-executor/aggregate.go:101-169 the partial/final agg split).  Here:
+executor/aggregate.go:101-169 the partial/final agg split).  Here, as in
+the JAX package's shard_map program:
 
-- The table's base tiles form ONE device tensor per column, shape
-  [n_tiles, TILE] (pow2-padded tile count, like the JAX package's mesh
-  layout), cached on the card by `_MeshCache` at the narrowest integer
+- The mesh is a list of S positions (`ops.mesh_devices`: one per card
+  by default, or S on one device); `get_mesh` keeps the positions whose
+  breakers admit work and rebuilds when that set changes.
+- A table's base tiles form [n_pad, TILE] per column (pow2-padded tile
+  count, a multiple of S), shard s holding tiles [s*Tl, (s+1)*Tl) on
+  its position's device, cached by `_MeshCache` at the narrowest integer
   width that holds the column.
-- The whole scan is one sequence of torch ops (`_build_mesh_core`):
-  widen, mask, filter and partially aggregate every row, so a
-  steady-state aggregation moves only G-sized results to the host.
+- The whole scan is the same sequence of torch ops on every shard
+  (`_build_mesh_core`): widen, mask, filter and partially aggregate its
+  rows.  Sums and counts merge in shard order on position 0's device
+  (`ops.psum`); min/max and first-row come back as per-shard partials
+  the host merges, as the reference does; so a steady-state aggregation
+  moves only G-sized results to the host.  Shards are issued one after
+  another and their results (group counts, TopN counts, masks) are read
+  once every shard was issued; what a shard's own ops read back
+  (`bincount`'s and `nonzero`'s sizes) still syncs inside it.
 - Aggregation over arbitrary keys (high NDV, float, NULLable or
   computed keys) groups by sorting (`_build_sort_agg_core`) into a
-  static budget of OUT groups per dispatch; a blown budget re-runs the
-  fragment with the aggregation peeled to a host tail
+  static budget of OUT groups per shard and dispatch; every shard's
+  partial chunk goes to the root merge (no collective); a blown budget
+  re-runs the fragment with the aggregation peeled to a host tail
   (`_peel_agg_rerun`).
-- TopN: a masked top-k on the card per dispatch; the host gathers the
-  candidate rows and picks the final ones (`run_topn`).
-- Filter: the fused mask is computed on the card and only the selected
-  row handles come back; the host gathers those rows.
+- TopN: a masked top-k per shard and dispatch; the host gathers every
+  shard's candidate rows and picks the final ones (`run_topn`).
+- Filter: the fused mask is computed per shard and only the selected
+  global row handles come back; the host gathers those rows.
 - Joins (`_apply_probes`): a runtime join filter (JoinProbeIR) ANDs a
   sorted-key membership test into the row mask, and a broadcast lookup
   join (JoinLookupIR) drops misses and gathers the matched build row's
   payload columns, inside the same program as the scan and the partial
-  aggregation.  The build keys and payloads move to the card once per
-  query (`_join_operands`).
+  aggregation.  The build keys and payloads move to every position once
+  per query (`_join_operands`).
+- Failover (`try_run_mesh`): a device failure trips the implicated
+  positions' breakers, evicts what they hold and re-runs over the
+  rebuilt mesh of survivors; a half-open probe restores the full mesh.
 
-This is the single-device path of the JAX package's mesh program: one
-card, so S = 1 and the cross-shard merge (psum) is the identity.  The
-mesh keeps its name on the SQL surface (`engine:mesh` in EXPLAIN
-ANALYZE) so both packages report the same route.  Multi-device meshes
-are not part of the port yet (ROADMAP).
+The mesh keeps its name on the SQL surface (`engine:mesh` in EXPLAIN
+ANALYZE) so both packages report the same route.  One process drives
+its local positions; joining hosts is not ported (`_maybe_init_multihost`).
 """
 
 from __future__ import annotations
@@ -86,7 +99,8 @@ def to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 class _Card:
-    """A device id in the shape the health registry selects over."""
+    """A mesh position id in the shape the health registry selects
+    over."""
 
     __slots__ = ("id",)
 
@@ -94,16 +108,147 @@ class _Card:
         self.id = did
 
 
+# ---------------------------------------------------------------------------
+# the mesh: positions, health filter, membership epoch
+# ---------------------------------------------------------------------------
+
+
+class Mesh:
+    """The positions one program runs over, in shard order: shard s runs
+    on `devices[s]` (position `ids[s]`).  Several positions may share a
+    device (`ops.use_device(dev, shards=S)`)."""
+
+    __slots__ = ("positions", "ids", "devices", "size", "where")
+
+    def __init__(self, positions):
+        self.positions = tuple(positions)
+        self.ids = tuple(pid for pid, _ in self.positions)
+        self.devices = tuple(d for _, d in self.positions)
+        self.size = len(self.positions)
+        # the devices behind the ids: a cache or program keyed on ids
+        # alone could serve a tensor of another device set
+        self.where = ",".join(str(d) for d in self.devices)
+
+
+_MESH: Optional[Mesh] = None
+#: membership epoch the current _MESH was derived from (coord plane):
+#: stamped under _MESH_LOCK by get_mesh, compared at every dispatch
+_MESH_EPOCH: Optional[int] = None
+_MESH_LOCK = make_lock("copr.parallel:_MESH_LOCK")
+
+
+def _maybe_init_multihost():
+    """The multi-host seam of the JAX package (TIDB_TPU_COORDINATOR joins
+    a cluster before the mesh is built).  Joining hosts is not part of
+    the port yet: with the variable set this raises instead of running
+    single-host quietly."""
+    import os
+
+    if os.environ.get("TIDB_TPU_COORDINATOR"):
+        raise NotImplementedError(
+            "TIDB_TPU_COORDINATOR is set, but the port runs one process "
+            "over its local devices: multi-host meshes are not ported yet")
+
+
+def _eligible_devices():
+    """(mesh-eligible positions, membership epoch they derive from): every
+    position minus tripped breakers (plus half-open probe admissions),
+    published to the coordination plane so /status membership stays
+    truthful.  An all-tripped set returns every position: callers gate
+    on `_check_breaker` first."""
+    from ..coord import get_plane
+
+    plane = get_plane()
+    positions = ops.mesh_devices()
+    healthy = {c.id for c in DEVICE_HEALTH.select_devices(
+        [_Card(pid) for pid, _ in positions])}
+    chosen = [p for p in positions if p[0] in healthy] or positions
+    plane.publish_local(tuple(pid for pid, _ in chosen))
+    return chosen, plane.current_epoch()
+
+
+def get_mesh() -> Mesh:
+    """The process-wide mesh over every eligible position.  It REBUILDS
+    whenever the eligible set changes: a tripped breaker shrinks it to
+    the survivors, a successful half-open probe restores it (counted on
+    `mesh_rebuilds_total`, chaos site `mesh/rebuild`)."""
+    global _MESH, _MESH_EPOCH
+    _maybe_init_multihost()
+    # check-and-rebuild and the eligibility snapshot under one lock: a
+    # racing thread holding a pre-trip snapshot must not reinstate a
+    # mesh that holds the just-quarantined position
+    with _MESH_LOCK:
+        positions, epoch = _eligible_devices()
+        if _MESH is None or _MESH.positions != tuple(positions):
+            if _MESH is not None:
+                from ..metrics import REGISTRY
+
+                REGISTRY.inc("mesh_rebuilds_total")
+            FAILPOINTS.hit("mesh/rebuild",
+                           device_ids=tuple(p for p, _ in positions))
+            _MESH = Mesh(positions)
+        # restamp even when the set is unchanged: an epoch bump without
+        # a visible change must not leave a stale stamp behind
+        _MESH_EPOCH = epoch
+        return _MESH
+
+
+def mesh_epoch() -> Optional[int]:
+    """Membership epoch the current mesh was built from."""
+    return _MESH_EPOCH
+
+
+def _check_membership_epoch():
+    """Dispatch-time epoch guard: the chaos site `coord/member_lost`
+    lands a membership change exactly here, and a change between mesh
+    build and dispatch is detected the same way.  Raises the typed
+    retriable CoordEpochMismatch; the caller rebuilds the mesh from the
+    new broadcast and re-runs."""
+    from ..coord import CoordEpochMismatch, get_plane
+
+    FAILPOINTS.hit("coord/member_lost", epoch=_MESH_EPOCH)
+    ep = get_plane().current_epoch()
+    if _MESH_EPOCH is not None and ep != _MESH_EPOCH:
+        from ..metrics import REGISTRY
+
+        REGISTRY.inc("coord_epoch_mismatch_total")
+        raise CoordEpochMismatch(_MESH_EPOCH, ep)
+
+
 def _check_breaker():
-    """Raise while the card's breaker is open with no probe due.  A
-    failing card fails its statements (typed, retriable once the
+    """Raise while every position's breaker is open with no probe due.
+    Failing cards fail their statements (typed, retriable once the
     cooldown admits a probe) instead of handing them to the host
     engine."""
     if not DEVICE_HEALTH.select_devices(
             [_Card(d) for d in ops.device_ids()]):
         raise DeviceUnavailableError(
-            f"device {ops.device()} is failing: its breaker is open "
-            "until the cooldown admits a probe")
+            f"every mesh position on {ops.device()} is failing: each "
+            "one's breaker is open until the cooldown admits a probe")
+
+
+def local_bounds(bounds, s: int, n_local: int):
+    """The global range bounds clipped to shard s's rows [s*n_local,
+    (s+1)*n_local), in the shard's own row coordinates (empty when the
+    bounds miss the shard)."""
+    r0, r1 = s * n_local, (s + 1) * n_local
+    return [(max(a, r0) - r0, min(b, r1) - r0) for a, b in bounds
+            if a < r1 and b > r0]
+
+
+def to_positions(arr: np.ndarray, mesh: Mesh) -> ops.Shards:
+    """A host operand on every position (one copy per distinct
+    device)."""
+    return ops.on_positions(torch.from_numpy(np.ascontiguousarray(arr)),
+                            mesh.devices)
+
+
+def place_shards(host: torch.Tensor, mesh: Mesh, Tl: int) -> ops.Shards:
+    """Rows [s*Tl, (s+1)*Tl) of a [n_pad, ...] host tensor (pinned when
+    it goes to a card) on position s: the sharded layout of every
+    column, mask and packed code array."""
+    return ops.Shards(host[s * Tl:(s + 1) * Tl].to(d)
+                      for s, d in enumerate(mesh.devices))
 
 
 def _layout(base_rows: int, n_shards: int = 1, table=None
@@ -185,10 +330,10 @@ def _hot_priority(key: tuple) -> float:
 def _hot_demote(key: tuple, value: tuple):
     """Demote an evicted hot column to the compressed cold tier
     (demote-to-cold before drop).  Only packable columns of a live store
-    on the current card compress; everything else just drops (and
-    reloads — possibly cold — on next access).  The evicted device
-    tensor feeds the on-card re-encode, so demotion reads back packed
-    codes, not host blocks."""
+    on the current mesh compress; everything else just drops (and
+    reloads — possibly cold — on next access).  The evicted per-shard
+    tensors feed the on-card re-encode, so demotion reads back nothing
+    and touches no host block."""
     from ..layout import COLD_CACHE, LAYOUT, layout_enabled
     from ..layout.coldtier import pack_info, recompress_from_device
     from ..metrics import REGISTRY
@@ -200,7 +345,10 @@ def _hot_demote(key: tuple, value: tuple):
     if table is None or table.base_version != base_version:
         return
     info = pack_info(table, store_ci)
-    if info is None or key[3] != ops.device_ids():
+    mesh = _MESH  # snapshot: a moved mesh skips the demote (the next
+    if info is None or mesh is None:  # access cold-loads on the new one)
+        return
+    if key[3] != mesh.ids or key[6] != mesh.where:
         return
     n_pad = key[5]
 
@@ -212,11 +360,22 @@ def _hot_demote(key: tuple, value: tuple):
     REGISTRY.inc("layout_cold_demotions_total")
 
 
-class _MeshCache:
-    """(store_uid, base_version, store_ci, device_ids, TILE, n_pad) ->
-    (data [n_pad, TILE], valid or None) on the card.
+def _column_key(table, store_ci: int, mesh: Mesh) -> tuple:
+    """The hot tier's key of one column on one mesh: (store_uid,
+    base_version, store_ci, position ids, TILE, n_pad, devices).  The
+    position ids let `evict_device` drop exactly what a dead position
+    holds; n_pad keeps a re-laid table from pairing with a stale shape.
+    The cold tier keys the same tuple + ("cold",)."""
+    _, n_pad, _ = _layout(table.base_rows, mesh.size, table=table)
+    return (table.store_uid, table.base_version, store_ci, mesh.ids,
+            te.TILE, n_pad, mesh.where)
 
-    The data tensor keeps the NARROW wire dtype (see _wire_dtype) and
+
+class _MeshCache:
+    """`_column_key` -> (data, valid or None): each a `Shards`, shard s
+    [Tl, TILE] on position s's device.
+
+    The data tensors keep the NARROW wire dtype (see _wire_dtype) and
     the valid slot is None for columns with no NULLs — consumers widen
     on the card / substitute a constant mask.
 
@@ -241,24 +400,22 @@ class _MeshCache:
     def _cache(self):  # introspected by tests
         return self._c.items_view
 
-    def get_column(self, table, store_ci: int):
-        devs = ops.device_ids()
-        _, n_pad, _ = _layout(table.base_rows, table=table)
-        key = (table.store_uid, table.base_version, store_ci, devs, te.TILE,
-               n_pad)
+    def get_column(self, mesh: Mesh, table, store_ci: int):
+        key = _column_key(table, store_ci, mesh)
+        n_pad = key[5]
+        Tl = n_pad // mesh.size
 
         def load():
             from ..trace import span
 
-            dev = ops.device()
             tile = te.TILE
             wire = _wire_dtype(table, store_ci)
             _, _, has_null = table.column_stats(store_ci)
             with span("copr.transfer", col=store_ci,
-                      device_ids=list(devs)) as sp:
+                      device_ids=list(mesh.ids)) as sp:
                 # ONE flat host buffer filled block by block, pinned when
-                # it goes to a card, then one copy
-                pin = dev.type == "cuda"
+                # it goes to a card, then one copy per shard
+                pin = any(d.type == "cuda" for d in mesh.devices)
                 host = torch.zeros(n_pad * tile, dtype=torch_dtype(wire),
                                    pin_memory=pin)
                 flat = host.numpy()
@@ -278,10 +435,11 @@ class _MeshCache:
                     off += n
                 sp.set(bytes=flat.nbytes
                        + (vflat.nbytes if vflat is not None else 0))
-                data = host.to(dev).reshape(n_pad, tile)
+                data = place_shards(host.reshape(n_pad, tile), mesh, Tl)
                 valid = None
                 if vhost is not None:
-                    valid = vhost.to(dev).reshape(n_pad, tile)
+                    valid = place_shards(vhost.reshape(n_pad, tile), mesh,
+                                         Tl)
                 return data, valid
 
         return self._c.get_or_load(key, load)
@@ -290,7 +448,8 @@ class _MeshCache:
         self._c.clear()
 
     def evict_device(self, device_id: int) -> int:
-        """Drop every cached column placed on this device."""
+        """Drop every cached column placed on a mesh holding this
+        position: a rebuilt mesh never reads a dead position's shards."""
         return self._c.evict_if(lambda k: device_id in k[3])
 
 
@@ -340,7 +499,28 @@ except AttributeError:  # pragma: no cover - very old CPython
     _atexit.register(_note_shutdown)
 
 
-def get_layout_column(table, store_ci: int):
+def load_columns(mesh: Mesh, table, store_cis):
+    """(data, valid) of several columns from the hot tier, loaded
+    concurrently on the transfer pool (the MPP sides read here: they
+    never go through the cold layout)."""
+    return _on_pool(MESH_CACHE.get_column, mesh, table, store_cis)
+
+
+def _on_pool(get, mesh: Mesh, table, store_cis):
+    cis = list(store_cis)
+    if len(cis) <= 1:
+        return [get(mesh, table, ci) for ci in cis]
+    # pool workers re-attach to the submitter's span so transfer spans
+    # land in the query's trace (contextvars don't cross threads)
+    from ..trace import current_span, run_attached
+
+    parent = current_span()
+    futs = [_xfer_pool().submit(run_attached, parent, get, mesh, table, ci)
+            for ci in cis]
+    return [f.result() for f in futs]
+
+
+def get_layout_column(mesh: Mesh, table, store_ci: int):
     """One column through the adaptive layout: ('hot', (data, valid)) or
     ('cold', ColdColumn).  Cold-tier hits/loads/promotions are counted;
     the chaos site `layout/decompress` (and any compression failure)
@@ -349,7 +529,7 @@ def get_layout_column(table, store_ci: int):
     from ..layout import layout_enabled
 
     if not layout_enabled():
-        return ("hot", MESH_CACHE.get_column(table, store_ci))
+        return ("hot", MESH_CACHE.get_column(mesh, table, store_ci))
     from ..errors import TiDBTPUError
     from ..layout import COLD_CACHE, LAYOUT, compress_column
     from ..layout.coldtier import DECOMPRESS_FAILPOINT
@@ -357,10 +537,8 @@ def get_layout_column(table, store_ci: int):
 
     LAYOUT.observe(table, store_ci, "scan")
     plan = LAYOUT.plan_for(table, store_ci)
-    devs = ops.device_ids()
-    _, n_pad, _ = _layout(table.base_rows, table=table)
-    cold_key = (table.store_uid, table.base_version, store_ci, devs,
-                te.TILE, n_pad, "cold")
+    cold_key = _column_key(table, store_ci, mesh) + ("cold",)
+    n_pad = cold_key[5]
     if plan.tier == "cold" and plan.bits:
         try:
             FAILPOINTS.hit(DECOMPRESS_FAILPOINT, col=store_ci,
@@ -368,7 +546,7 @@ def get_layout_column(table, store_ci: int):
             hit = COLD_CACHE.peek(cold_key) is not None
             entry = COLD_CACHE.get_or_load(
                 cold_key,
-                lambda: (compress_column(table, store_ci, n_pad),),
+                lambda: (compress_column(table, store_ci, mesh, n_pad),),
             )[0]
             REGISTRY.inc("layout_cold_hits_total" if hit
                          else "layout_cold_loads_total")
@@ -384,24 +562,13 @@ def get_layout_column(table, store_ci: int):
         # promote — drop the compressed copy, load the wire array
         COLD_CACHE.evict_if(lambda k: k == cold_key)
         REGISTRY.inc("layout_cold_promotions_total")
-    return ("hot", MESH_CACHE.get_column(table, store_ci))
+    return ("hot", MESH_CACHE.get_column(mesh, table, store_ci))
 
 
-def load_layout_columns(table, store_cis):
+def load_layout_columns(mesh: Mesh, table, store_cis):
     """Per-column hot/cold entries for several columns, loaded
     concurrently on the transfer pool."""
-    cis = list(store_cis)
-    if len(cis) <= 1:
-        return [get_layout_column(table, ci) for ci in cis]
-    # pool workers re-attach to the submitter's span so transfer spans
-    # land in the query's trace (contextvars don't cross threads)
-    from ..trace import current_span, run_attached
-
-    parent = current_span()
-    futs = [_xfer_pool().submit(run_attached, parent,
-                                get_layout_column, table, ci)
-            for ci in cis]
-    return [f.result() for f in futs]
+    return _on_pool(get_layout_column, mesh, table, store_cis)
 
 
 def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
@@ -416,6 +583,10 @@ def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
     if table.base_rows < min_rows:
         return
     ops.device()  # a missing card raises here, on the caller's thread
+    try:
+        mesh = get_mesh()
+    except Exception:
+        return
 
     def run():
         try:
@@ -423,7 +594,7 @@ def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
             for ci in range(len(table.cols)):
                 if _SHUTDOWN or table.base_version != version:
                     return  # interpreter exiting / data changed under us
-                get_layout_column(table, ci)  # warms the right tier
+                get_layout_column(mesh, table, ci)  # warms the right tier
         except Exception:
             pass  # prefetch is advisory; queries load on demand
 
@@ -431,23 +602,40 @@ def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
         target=run, daemon=False, name="tidb-tpu-prefetch").start()
 
 
-# all-true deletion masks, byte-capped like the data cache
+# all-true deletion masks, byte-capped like the data cache; keyed on the
+# mesh's positions so a rebuilt mesh never reads a dead position's mask
 _ONES_CACHE = None
 
 
-def _all_true(n_pad: int):
+def _all_true(mesh: Mesh, n_pad: int) -> ops.Shards:
     global _ONES_CACHE
     if _ONES_CACHE is None:
         from .cache import ByteCapCache
 
         _ONES_CACHE = ByteCapCache(1 << 30)
-    key = (ops.device_ids(), n_pad, te.TILE)
+    Tl = n_pad // mesh.size
+    key = (mesh.ids, n_pad, te.TILE, mesh.where)
 
     def load():
-        return (torch.ones((n_pad, te.TILE), dtype=torch.bool,
-                           device=ops.device()),)
+        # every shard has the same shape: positions on one device share
+        # one tensor
+        ones = torch.ones((Tl, te.TILE), dtype=torch.bool)
+        return (ops.on_positions(ones, mesh.devices),)
 
     return _ONES_CACHE.get_or_load(key, load)[0]
+
+
+def _del_mask(deleted, mesh: Mesh, n_pad: int) -> ops.Shards:
+    """The deletion mask of a snapshot's `deleted` handles, sharded like
+    the columns: the resident all-true one unless rows were MVCC-deleted."""
+    if not deleted:
+        return _all_true(mesh, n_pad)
+    pin = any(d.type == "cuda" for d in mesh.devices)
+    host = torch.ones(n_pad * te.TILE, dtype=torch.bool, pin_memory=pin)
+    host.numpy()[np.fromiter(sorted(deleted), dtype=np.int64,
+                             count=len(deleted))] = False
+    return place_shards(host.reshape(n_pad, te.TILE), mesh,
+                        n_pad // mesh.size)
 
 
 # ---------------------------------------------------------------------------
@@ -516,11 +704,12 @@ def _pow2_pad(k: int) -> int:
     return kpad
 
 
-def _join_operands(req: CopRequest, an: _Analyzed, dev):
-    """The probes' and lookups' runtime operands on the card, read from
-    `req.aux` once per query (every dispatch chunk shares them):
-    (pargs, kpads), or None when a lookup key is a float (the caller
-    declines the fused program).  A missing operand raises."""
+def _join_operands(req: CopRequest, an: _Analyzed, mesh: Mesh):
+    """The probes' and lookups' runtime operands on every position, read
+    from `req.aux` once per query (every dispatch chunk shares them):
+    (pargs, kpads) with each operand a `Shards` (the build side is
+    broadcast to every shard), or None when a lookup key is a float (the
+    caller declines the fused program).  A missing operand raises."""
     from ..errors import ExecutorError
 
     aux = req.aux or {}
@@ -531,9 +720,9 @@ def _join_operands(req: CopRequest, an: _Analyzed, dev):
         kpad = _pow2_pad(k)
         padded = np.full(kpad, sentinel, dtype=dtype)
         padded[:k] = arr
-        pargs.append(to_device(padded, dev))
+        pargs.append(to_positions(padded, mesh))
         # kn stays on the card: reading it back would cost a sync
-        pargs.append(torch.tensor(k, dtype=torch.int64, device=dev))
+        pargs.append(to_positions(np.array(k, dtype=np.int64), mesh))
         kpads.append(kpad)
         return kpad
 
@@ -566,8 +755,8 @@ def _join_operands(req: CopRequest, an: _Analyzed, dev):
             pv = np.zeros(kpad, dtype=np.bool_)
             src_v = pvalids[j] if pvalids is not None else None
             pv[:k] = True if src_v is None else src_v
-            pargs.append(to_device(pl, dev))
-            pargs.append(to_device(pv, dev))
+            pargs.append(to_positions(pl, mesh))
+            pargs.append(to_positions(pv, mesh))
     return tuple(pargs), kpads
 
 
@@ -600,7 +789,7 @@ def _cols_env(an: _Analyzed, col_order: List[int], datas, valids,
     from . import fusion
 
     n = hi - lo
-    dev = ops.device()
+    dev = datas[0].device if datas else ops.device()
     env = {}
     lv = 0
     for j, ci in enumerate(col_order):
@@ -655,8 +844,10 @@ def _mesh_masks(del_mask, bounds, lo: int, hi: int):
 
 def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
                      n_global: int, col_layout=None):
-    """The fused whole-fragment program for one fragment shape:
-    core(datas, valids, del_mask, bounds, lvals, pargs, params).
+    """The fused whole-fragment program of ONE shard for one fragment
+    shape: core(datas, valids, del_mask, bounds, lvals, pargs, params,
+    row0), over that shard's tensors, with `bounds` in its own row
+    coordinates and `row0` its first global row.
 
     It evaluates the rows of one dispatch's span (`_span_of(bounds)`),
     builds the union row mask over the range slots, and composes the
@@ -664,16 +855,17 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
     and lookups (`_apply_probes` over the `pargs` operands), then dense
     group codes and aggregation for `agg`, the top-k for `topn`, or just
     the mask for `filter` — so the fragment is one sequence of device
-    ops.  Returns (gcount, results) tensors for dense `agg`, (row
-    handles, count) for `topn` and (lo, mask) for `filter`; sort-mode
-    `agg` is `_build_sort_agg_core`."""
+    ops.  Returns (gcount, results) tensors for dense `agg`, (global row
+    handles, count) for `topn` and (first global row, mask) for
+    `filter`; sort-mode `agg` is `_build_sort_agg_core`."""
     from . import fusion
 
     if kind == "agg" and an.agg_mode == "sort":
         return _build_sort_agg_core(an, col_order, n_global,
                                     col_layout=col_layout)
 
-    def region_ctx(datas, valids, del_mask, bounds, lvals, pargs, params):
+    def region_ctx(datas, valids, del_mask, bounds, lvals, pargs, params,
+                   row0):
         lo, hi = _span_of(bounds)
         cols = _cols_env(an, col_order, datas, valids, lo, hi, params,
                          col_layout=col_layout, lvals=lvals)
@@ -681,19 +873,21 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
         gofs = None
         if an.agg is not None and any(a.name == "first_row"
                                       for a in an.agg.aggs):
-            gofs = torch.arange(lo, hi, dtype=torch.int64,
+            # global row offsets: argfirst picks the first GLOBAL row
+            gofs = torch.arange(row0 + lo, row0 + hi, dtype=torch.int64,
                                 device=row_mask.device)
         ctx = fusion.RegionContext(an=an, cols=cols, n=hi - lo,
                                    mask=row_mask, gofs=gofs,
                                    n_global=n_global)
         fusion.selection_mask(ctx)
         ctx.mask, _pos = _apply_probes(an, cols, ctx.mask, pargs, hi - lo)
-        return lo, ctx
+        return row0 + lo, ctx
 
     if kind == "agg":
-        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
-            _lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                  pargs, params)
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params,
+                 row0):
+            _g0, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
+                                  pargs, params, row0)
             gidx = fusion.dense_group_codes(ctx)
             return fusion.dense_agg_results(ctx, gidx)
     elif kind == "topn":
@@ -702,18 +896,20 @@ def _build_mesh_core(an: _Analyzed, kind: str, col_order: List[int],
         desc = fusion.topn_desc(an)
         budget = topn_budget(an.topn.limit)
 
-        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
-            lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                 pargs, params)
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params,
+                 row0):
+            g0, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
+                                 pargs, params, row0)
             key = fusion.topn_key(ctx)
             idx, cnt = ops.masked_top_k(key, ctx.mask,
                                         min(budget, ctx.n), desc)
-            return idx + lo, cnt
+            return idx + g0, cnt
     else:  # filter: the fused selection mask
-        def core(datas, valids, del_mask, bounds, lvals, pargs, params):
-            lo, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
-                                 pargs, params)
-            return lo, ctx.mask
+        def core(datas, valids, del_mask, bounds, lvals, pargs, params,
+                 row0):
+            g0, ctx = region_ctx(datas, valids, del_mask, bounds, lvals,
+                                 pargs, params, row0)
+            return g0, ctx.mask
     return core
 
 
@@ -753,18 +949,20 @@ def _fd_sort_lookup(an: _Analyzed) -> bool:
 
 def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
                          n_global: int, col_layout=None):
-    """Sort-based partial aggregation for arbitrary group keys (any NDV,
-    float, NULLable, computed keys): core(datas, valids, del_mask,
-    bounds, lvals, pargs, params) -> (n_uniq, keys, results, OUT).
+    """Sort-based partial aggregation of ONE shard for arbitrary group
+    keys (any NDV, float, NULLable, computed keys): core(datas, valids,
+    del_mask, bounds, lvals, pargs, params, row0) -> (n_uniq, keys,
+    results, OUT).
 
     Per dispatch: sort rows by (key bits..., null flags...,
     selected-first), mark group boundaries, segment-reduce into a
     static budget of OUT = min(TIDB_TPU_AGG_OUT, span rows) groups, and
-    emit compacted (keys, partial states); the ROOT final HashAgg merges
-    the partial chunks — the reference's coprocessor-partial/root-final
-    split (executor/aggregate.go:101-169).  Computed keys regather
-    their dictionary codes through the remap operands (the lvals tail
-    after the cold dictionary operands) with K1."""
+    emit compacted (keys, partial states).  No collective: every shard's
+    partial chunk goes to the ROOT final HashAgg, which merges them —
+    the reference's coprocessor-partial/root-final split
+    (executor/aggregate.go:101-169).  Computed keys regather their
+    dictionary codes through the remap operands (the lvals tail after
+    the cold dictionary operands) with K1."""
     from . import fusion
     from .torch_eval import compile_expr
 
@@ -775,7 +973,7 @@ def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
     needs_gofs = any(a.name == "first_row" for a in agg_ir.aggs)
     fd_lookup = _fd_sort_lookup(an)
 
-    def core(datas, valids, del_mask, bounds, lvals, pargs, params):
+    def core(datas, valids, del_mask, bounds, lvals, pargs, params, row0):
         lo, hi = _span_of(bounds)
         n_local = hi - lo
         out = min(out_budget, n_local)
@@ -822,7 +1020,7 @@ def _build_sort_agg_core(an: _Analyzed, col_order: List[int],
         out_keys = [k[pos] for k in skeys]
         sgofs = None
         if needs_gofs:
-            sgofs = order + lo  # global row index of each sorted row
+            sgofs = order + (row0 + lo)  # global row of each sorted row
         results = fusion.grouped_partial_states(
             agg_ir.aggs, lambda e: compile_expr(e, cols, n_local),
             order, sm, seg, out, sgofs=sgofs, n_global=n_global)
@@ -837,45 +1035,112 @@ def _readback(x):
     return x.cpu().numpy()
 
 
-def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
-                   n_global: int, col_layout=None):
-    """The fused program plus its readback, traced as one
-    `copr.device.execute` span and one `copr.readback` span.
+def _shard_calls(core, mesh_size: int, n_local: int, datas, valids,
+                 del_mask, bounds, lvals, pargs, params):
+    """Issue `core` on every shard the bounds touch, in shard order, each
+    on its own position's tensors; nothing is read back in between
+    (launches are asynchronous, so the shards of a multi-card mesh
+    overlap up to the size reads inside a shard's own ops).  Returns the
+    per-shard outputs in shard order."""
+    outs = []
+    for s in range(mesh_size):
+        sb = local_bounds(bounds, s, n_local)
+        if not sb:
+            continue  # the dispatch touches none of this shard's rows
+        outs.append(core(
+            [d[s] for d in datas],
+            [None if v is None else v[s] for v in valids],
+            del_mask[s], sb, tuple(x[s] for x in lvals),
+            tuple(x[s] for x in pargs),
+            None if params is None else tuple(x[s] for x in params),
+            s * n_local))
+    return outs
 
-    fn(datas, valids, del_mask, bounds, lvals, pargs, params) returns
-    (gcount, [(tag, result), ...]) as numpy for `agg`, and the selected
-    global row handles (int64 numpy, ascending) for `filter`."""
+
+def _merge_shard_agg(an: _Analyzed, parts):
+    """The cross-shard merge of dense partials: gcount, counts and sums
+    add in shard order on position 0's device (`ops.psum`); min/max
+    values and first-row indices come back as per-shard [S, G] partials
+    that the host merges after the readback, as the JAX package does
+    (its compiler lowers only Sum all-reduces)."""
+    gcount = ops.psum([p[0] for p in parts])
+    results = []
+    for si, a in enumerate(an.agg.aggs):
+        rs = [p[1][si] for p in parts]
+        if a.name in ("min", "max"):
+            results.append((ops.gather0([r[0] for r in rs]),
+                            ops.psum([r[1] for r in rs])))
+        elif a.name == "first_row":
+            results.append(ops.gather0(rs))
+        elif isinstance(rs[0], tuple):
+            results.append(tuple(ops.psum([r[i] for r in rs])
+                                 for i in range(len(rs[0]))))
+        else:
+            results.append(ops.psum(rs))
+    return gcount, results
+
+
+def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
+                   mesh: Mesh, tiles_per_shard: int, col_layout=None):
+    """The fused program over every shard plus its readback, traced as
+    one `copr.device.execute` span and one `copr.readback` span.
+
+    fn(datas, valids, del_mask, bounds, lvals, pargs, params) takes
+    `Shards` operands and global range bounds and returns (gcount,
+    [(tag, result), ...]) as numpy for `agg` (merged across shards),
+    the candidate global row handles for `topn` and the selected global
+    row handles (int64 numpy, ascending) for `filter`."""
     from ..trace import span
 
+    S = mesh.size
+    n_local = tiles_per_shard * te.TILE
+    n_global = S * n_local
     core = _build_mesh_core(an, kind, col_order, n_global,
                             col_layout=col_layout)
+
+    def run(datas, valids, del_mask, bounds, lvals, pargs, params):
+        return _shard_calls(core, S, n_local, datas, valids, del_mask,
+                            bounds, lvals, pargs, params)
+
     if kind == "agg" and an.agg_mode == "sort":
-        return _wrap_sort_agg(an, core)
+        return _wrap_sort_agg(an, run)
     if kind == "agg":
         tags = te._agg_tags(an.agg)
 
         def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-                gcount, results = core(datas, valids, del_mask, bounds,
-                                       lvals, pargs, params)
+                gcount, results = _merge_shard_agg(an, run(
+                    datas, valids, del_mask, bounds, lvals, pargs, params))
             with span("copr.readback") as sp:
                 gcount = _readback(gcount)
                 results = [_readback(r) for r in results]
                 sp.set(bytes=int(gcount.nbytes) + sum(
                     sum(x.nbytes for x in r) if isinstance(r, tuple)
                     else r.nbytes for r in results))
-            return gcount, list(zip(tags, results))
+            merged = []
+            for a, tag, r in zip(an.agg.aggs, tags, results):
+                if tag == "minmax":
+                    part, cnt = r  # part: [S', G] per-shard partials
+                    part = part.min(0) if a.name == "min" else part.max(0)
+                    r = (part, cnt)
+                elif tag == "argfirst":
+                    r = r.min(0)
+                merged.append((tag, r))
+            return gcount, merged
 
         return wrapped
 
     if kind == "topn":
         def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-                handles, cnt = core(datas, valids, del_mask, bounds, lvals,
-                                    pargs, params)
+                parts = run(datas, valids, del_mask, bounds, lvals, pargs,
+                            params)
             with span("copr.readback") as sp:
-                c = int(cnt)
-                out = handles[:c].cpu().numpy()
+                # every shard's candidates, read once all were issued
+                cnts = [int(c) for _h, c in parts]
+                out = np.concatenate(
+                    [h[:c].cpu().numpy() for (h, _c), c in zip(parts, cnts)]
+                    or [np.zeros(0, np.int64)])
                 sp.set(bytes=out.nbytes)
             return out
 
@@ -883,101 +1148,120 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
     def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-            lo, mask = core(datas, valids, del_mask, bounds, lvals, pargs,
-                            params)
-            handles = torch.nonzero(mask).reshape(-1) + lo
+            parts = run(datas, valids, del_mask, bounds, lvals, pargs,
+                        params)
+            handles = [torch.nonzero(m).reshape(-1) + g0 for g0, m in parts]
         with span("copr.readback") as sp:
-            out = handles.cpu().numpy()
+            # shards hold ascending row blocks: shard order keeps the
+            # handles ascending
+            out = np.concatenate([h.cpu().numpy() for h in handles]
+                                 or [np.zeros(0, np.int64)])
             sp.set(bytes=out.nbytes)
         return out
 
     return wrapped
 
 
-def _wrap_sort_agg(an: _Analyzed, core):
-    """The sort-mode program plus its readback: the group count first,
-    then only the first min(n_uniq, OUT) slots of every key and state
-    (nothing more when the budget blew — the caller raises)."""
+def _wrap_sort_agg(an: _Analyzed, run):
+    """The sort-mode program plus its readback: every shard's group count
+    first (read once every shard was issued), then only the first
+    min(n_uniq, OUT) slots of every key and state of each shard (nothing
+    more once a budget blew — the caller raises).  Returns one dict per
+    shard, in shard order."""
     from ..trace import span
 
     tags = te._agg_tags(an.agg)
 
     def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-            n_uniq, keys, results, out = core(datas, valids, del_mask,
-                                              bounds, lvals, pargs, params)
+            parts = run(datas, valids, del_mask, bounds, lvals, pargs,
+                        params)
+        outs = []
         with span("copr.readback") as sp:
-            k = int(n_uniq)
-            if k > out:
-                keys, results = [], []
-            else:
-                keys = [t[:k].cpu().numpy() for t in keys]
-                results = [tuple(x[:k].cpu().numpy() for x in r)
-                           if isinstance(r, tuple) else r[:k].cpu().numpy()
-                           for r in results]
-            sp.set(bytes=sum(x.nbytes for x in keys) + sum(
-                sum(x.nbytes for x in r) if isinstance(r, tuple)
-                else r.nbytes for r in results))
-        return {"OUT": out, "n_uniq": k, "keys": keys,
-                "results": list(zip(tags, results))}
+            ks = [int(p[0]) for p in parts]
+            blown = any(k > p[3] for k, p in zip(ks, parts))
+            nbytes = 0
+            for k, (_n, keys, results, out) in zip(ks, parts):
+                if blown:
+                    keys, results = [], []
+                else:
+                    keys = [t[:k].cpu().numpy() for t in keys]
+                    results = [tuple(x[:k].cpu().numpy() for x in r)
+                               if isinstance(r, tuple)
+                               else r[:k].cpu().numpy() for r in results]
+                nbytes += sum(x.nbytes for x in keys) + sum(
+                    sum(x.nbytes for x in r) if isinstance(r, tuple)
+                    else r.nbytes for r in results)
+                outs.append({"OUT": out, "n_uniq": k, "keys": keys,
+                             "results": list(zip(tags, results))})
+            sp.set(bytes=nbytes)
+        return outs
 
     return wrapped
 
 
-def _sort_agg_chunks(out: dict, table, an: _Analyzed) -> List[Chunk]:
-    """One dispatch's compacted groups -> a partial chunk [keys...,
+def _sort_agg_chunks(outs: list, table, an: _Analyzed) -> List[Chunk]:
+    """Every shard's compacted groups -> one partial chunk a shard [keys...,
     states...] in the layout the CPU engine emits (the root final agg
-    merges).  Raises MeshAggOverflow when the group budget blew."""
+    merges).  Raises MeshAggOverflow when a shard's group budget blew."""
     from ..store.blockstore import _decode_dict
 
-    OUT, k_s = out["OUT"], out["n_uniq"]
-    if k_s > OUT:
-        raise MeshAggOverflow(f"{k_s} groups > budget {OUT}")
-    if k_s == 0:
-        return []
+    for s, out in enumerate(outs):
+        if out["n_uniq"] > out["OUT"]:
+            raise MeshAggOverflow(f"shard {s}: {out['n_uniq']} groups > "
+                                  f"budget {out['OUT']}")
+    chunks: List[Chunk] = []
     nk = len(an.agg.group_by)
-    cols: List[Column] = []
-    for i, g in enumerate(an.agg.group_by):
-        bits = out["keys"][i]
-        flags = out["keys"][nk + i].astype(np.bool_)
-        ft = g.ftype
-        rem = an.key_remaps[i] if an.key_remaps else None
-        if rem is not None and rem.out_dict is not None:
-            # computed-key codes decode through the remap's OUTPUT
-            # dictionary (sorted, so code order == string order);
-            # INT-valued remaps carry the computed values directly
-            data = _decode_dict(bits.astype(np.int64), rem.out_dict)
-        elif ft.kind == TypeKind.FLOAT:
-            data = bits.astype(np.float64, copy=False)
-        elif ft.kind == TypeKind.STRING:
-            store_ci = an.scan.columns[g.index]
-            data = _decode_dict(bits.astype(np.int64),
-                                table.cols[store_ci].dictionary)
-        else:
-            data = bits.astype(ft.np_dtype)
-        cols.append(Column(ft, data, flags if not flags.all() else None))
-    for a, (tag, r) in zip(an.agg.aggs, out["results"]):
-        pts = a.partial_types()
-        if tag == "count":
-            cols.append(Column(pts[0], r.astype(np.int64)))
-        elif tag == "sumcount":
-            sm_, c = r
-            cols.append(Column(pts[0], sm_.astype(pts[0].np_dtype), c > 0))
-            if a.name == "avg":
-                cols.append(Column(pts[1], c.astype(np.int64)))
-        elif tag == "minmax":
-            v, c = r
-            if a.args[0].ftype.kind == TypeKind.STRING:
-                store_ci = an.scan.columns[a.args[0].index]
-                obj = _decode_dict(v.astype(np.int64),
-                                   table.cols[store_ci].dictionary)
-                cols.append(Column(pts[0], obj, c > 0))
+    for out in outs:
+        k_s = out["n_uniq"]
+        if k_s == 0:
+            continue
+        cols: List[Column] = []
+        for i, g in enumerate(an.agg.group_by):
+            bits = out["keys"][i]
+            flags = out["keys"][nk + i].astype(np.bool_)
+            ft = g.ftype
+            rem = an.key_remaps[i] if an.key_remaps else None
+            if rem is not None and rem.out_dict is not None:
+                # computed-key codes decode through the remap's OUTPUT
+                # dictionary (sorted, so code order == string order);
+                # INT-valued remaps carry the computed values directly
+                data = _decode_dict(bits.astype(np.int64), rem.out_dict)
+            elif ft.kind == TypeKind.FLOAT:
+                data = bits.astype(np.float64, copy=False)
+            elif ft.kind == TypeKind.STRING:
+                store_ci = an.scan.columns[g.index]
+                data = _decode_dict(bits.astype(np.int64),
+                                    table.cols[store_ci].dictionary)
             else:
-                cols.append(Column(pts[0], v.astype(pts[0].np_dtype), c > 0))
-        elif tag == "argfirst":
-            vals, valid = _gather_first_values(table, an, a.args[0], r, k_s)
-            cols.append(Column(pts[0], vals, valid))
-    return [Chunk(cols)]
+                data = bits.astype(ft.np_dtype)
+            cols.append(Column(ft, data, flags if not flags.all() else None))
+        for a, (tag, r) in zip(an.agg.aggs, out["results"]):
+            pts = a.partial_types()
+            if tag == "count":
+                cols.append(Column(pts[0], r.astype(np.int64)))
+            elif tag == "sumcount":
+                sm_, c = r
+                cols.append(Column(pts[0], sm_.astype(pts[0].np_dtype),
+                                   c > 0))
+                if a.name == "avg":
+                    cols.append(Column(pts[1], c.astype(np.int64)))
+            elif tag == "minmax":
+                v, c = r
+                if a.args[0].ftype.kind == TypeKind.STRING:
+                    store_ci = an.scan.columns[a.args[0].index]
+                    obj = _decode_dict(v.astype(np.int64),
+                                       table.cols[store_ci].dictionary)
+                    cols.append(Column(pts[0], obj, c > 0))
+                else:
+                    cols.append(Column(pts[0], v.astype(pts[0].np_dtype),
+                                       c > 0))
+            elif tag == "argfirst":
+                vals, valid = _gather_first_values(table, an, a.args[0], r,
+                                                   k_s)
+                cols.append(Column(pts[0], vals, valid))
+        chunks.append(Chunk(cols))
+    return chunks
 
 
 def _peel_agg_rerun(storage, req, tid: int, dag: DAG, reason: str):
@@ -1032,26 +1316,53 @@ def _compile_labeled(fn, kind: str):
 MAX_MESH_ATTEMPTS = 3
 
 
+def _failed_positions(exc: BaseException):
+    """The mesh positions a failure implicates: a `DeviceFailure`'s
+    payload names positions; an id parsed from a runtime's message names
+    a physical card, and trips every position that card holds."""
+    ids = attribute_devices(exc)
+    if getattr(exc, "device_ids", ()):
+        return ids
+    out = []
+    for card in ids:
+        for pid in ops.positions_on_card(card):
+            if pid not in out:
+                out.append(pid)
+    return tuple(out)
+
+
+def _evict_position(did: int):
+    """Drop everything cached on mesh position `did`: hot and cold
+    columns and masks of every mesh that held it, and its tiles."""
+    from ..layout import coldtier
+
+    MESH_CACHE.evict_device(did)
+    coldtier.evict_device(did)
+    te.DEVICE_CACHE.evict_device(did)
+    if _ONES_CACHE is not None:
+        _ONES_CACHE.evict_if(lambda k, d=did: d in k[0])
+
+
 def _handle_mesh_failure(req: CopRequest, exc: BaseException,
                          attempts: int) -> bool:
     """Consume one device runtime failure; True when the request may
-    retry.  Device-attributed errors trip the card's breaker and evict
-    its cached tensors; device-memory OOM evicts the caches wholesale
-    (device memory is a cache over host blocks).  Unclassifiable errors
-    are NOT consumed: they surface as they are."""
+    retry on a (possibly rebuilt) mesh.  Device-attributed errors trip
+    the breaker of every implicated position and evict what it holds, so
+    the retry rebuilds the mesh over the survivors; device-memory OOM
+    evicts the caches wholesale (device memory is a cache over host
+    blocks) and trips nothing.  Unclassifiable errors are NOT consumed:
+    they surface as they are.  The trip and eviction run even on the last
+    attempt: the next statement must not run on a dead position."""
     from ..layout import coldtier
     from ..metrics import REGISTRY
 
     kind = classify_failure(exc)
     if kind is None:
         return False
-    for did in attribute_devices(exc):
+    dead = _failed_positions(exc)
+    for did in dead:
         DEVICE_HEALTH.record_error(did, exc)
-        MESH_CACHE.evict_device(did)
-        coldtier.evict_device(did)
-        te.DEVICE_CACHE.evict_device(did)
-        if _ONES_CACHE is not None:
-            _ONES_CACHE.evict_if(lambda k, d=did: d in k[0])
+        _evict_position(did)
     if kind == "oom":
         REGISTRY.inc("mesh_hbm_oom_total")
         MESH_CACHE.clear()
@@ -1067,21 +1378,28 @@ def _handle_mesh_failure(req: CopRequest, exc: BaseException,
     import logging
 
     logging.getLogger("tidb_tpu.copr").warning(
-        "device %s failure: retrying: %s", kind, exc)
+        "device %s failure (positions %s): retrying over the surviving "
+        "positions: %s", kind, list(dead) or "unattributed", exc)
     return True
 
 
 def try_run_mesh(storage, req: CopRequest, table_id=None):
-    """Run the whole request on the card; None if the plan is
-    ineligible (the caller falls back to the per-region fan-out, and
-    `req.mesh_reject_reason` says why in EXPLAIN ANALYZE).  Runtime
-    failures on the card retry on the card, then raise: they never turn
-    into None.
+    """Run the whole request over the mesh with device failover; None if
+    the plan is ineligible (the caller falls back to the per-region
+    fan-out, and `req.mesh_reject_reason` says why in EXPLAIN ANALYZE).
+
+    Failover ladder (README "Fault-tolerance model"): a runtime failure
+    trips the implicated positions' breakers, evicts what they hold,
+    REBUILDS the mesh over the survivors and re-runs there.  Runtime
+    failures never turn into None: when every breaker is open the
+    statement gets `DeviceUnavailableError` (no host step-down).
 
     Returns an ITERABLE of chunks: a list for agg, a ONE-SHOT lazy
     generator for filters (streamed gathers — iterate exactly once; a
     device error before the first chunk retries, after rows were
     emitted it surfaces to the consumer)."""
+    from ..coord import CoordEpochMismatch
+
     dag = DAG.from_dict(req.dag)
     tid = table_id if table_id is not None else dag.scan.table_id
     range_tids = sorted({kr.table_id for kr in req.ranges})
@@ -1094,6 +1412,13 @@ def try_run_mesh(storage, req: CopRequest, table_id=None):
     while True:
         try:
             out = _run_mesh_once(storage, req, tid)
+        except CoordEpochMismatch:
+            # membership moved between mesh build and dispatch: rebuild
+            # from the new broadcast and re-run; never a breaker trip
+            if attempts + 1 >= MAX_MESH_ATTEMPTS:
+                raise
+            attempts += 1
+            continue
         except BaseException as e:
             if not _handle_mesh_failure(req, e, attempts):
                 raise
@@ -1108,9 +1433,11 @@ def try_run_mesh(storage, req: CopRequest, table_id=None):
 
 def _guarded_stream(storage, req: CopRequest, tid: int, gen, attempts: int):
     """Wrap a one-shot filter stream in the failover loop: a device
-    failure BEFORE the first chunk restarts the stream from scratch;
-    after rows were emitted a retry would duplicate them, so the error
-    surfaces."""
+    failure BEFORE the first chunk rebuilds the mesh and restarts the
+    stream from scratch; after rows were emitted a retry would duplicate
+    them, so the error surfaces."""
+    from ..coord import CoordEpochMismatch
+
     while True:
         emitted = False
         try:
@@ -1124,6 +1451,11 @@ def _guarded_stream(storage, req: CopRequest, tid: int, gen, attempts: int):
                 emitted = True
                 yield c
             return
+        except CoordEpochMismatch:
+            if emitted or attempts + 1 >= MAX_MESH_ATTEMPTS:
+                raise
+            attempts += 1
+            gen = None
         except BaseException as e:
             handled = _handle_mesh_failure(req, e, attempts)
             if emitted or not handled:
@@ -1163,7 +1495,7 @@ def _observe_fragment(table, an: _Analyzed):
 def _run_mesh_once(storage, req: CopRequest, tid: int,
                    max_cut: Optional[int] = None,
                    forced_label: Optional[str] = None):
-    """One attempt at running the request on the card; None if
+    """One attempt at running the request over the current mesh; None if
     ineligible.  Raises on runtime failures — try_run_mesh owns the
     retry.
 
@@ -1208,15 +1540,15 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
     from ..serving import hoist_conds
 
     hoisted = hoist_conds(an)
-    dev = ops.device()
-    devs = ops.device_ids()
-    _n_tiles, n_pad, _tl = _layout(table.base_rows, table=table)
-    n_global = n_pad * te.TILE
+    mesh = get_mesh()
+    S = mesh.size
+    devs = mesh.ids
+    _n_tiles, n_pad, Tl = _layout(table.base_rows, S, table=table)
     col_order = an.needed_cols()
     _observe_fragment(table, an)
     # the join operands: sorted build keys (and lookup payloads), padded
     # to a pow2 bucket so programs are shared across build sizes
-    joins = _join_operands(req, an, dev)
+    joins = _join_operands(req, an, mesh)
     if joins is None:
         req.mesh_reject_reason = "float lookup key"
         return None
@@ -1228,7 +1560,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
     # operand).  Loads run on the transfer pool.
     datas, valids, col_layout, lvals, wire_sig = [], [], [], [], []
     for tier, entry in load_layout_columns(
-            table, [an.scan.columns[ci] for ci in col_order]):
+            mesh, table, [an.scan.columns[ci] for ci in col_order]):
         if tier == "cold":
             datas.append(entry.packed)
             valids.append(None)
@@ -1243,20 +1575,21 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
             datas.append(d)
             valids.append(v)
             col_layout.append(None)
-            wire_sig.append((str(d.dtype), v is None))
+            wire_sig.append((str(d[0].dtype), v is None))
     # computed-key remap operands ride the lvals tail AFTER the cold
     # dictionary operands (the ordering _build_sort_agg_core reads);
     # each mapping is uploaded once per base version (KeyRemap caches
     # its device copy, and the remap itself is cached per version)
     for r in (an.key_remaps or ()):
         if r is not None:
-            lvals.append(r.on_device(dev))
+            lvals.append(ops.Shards(r.on_device(d) for d in mesh.devices))
     lvals = tuple(lvals)
     if not any(col_layout):
         col_layout = None
 
     fp = (_fingerprint(an, kind)
-          + f"|mesh S=1 n_pad={n_pad} devs={devs} cols={col_order} "
+          + f"|mesh S={S} Tl={Tl} devs={devs}@{mesh.where} "
+          + f"cols={col_order} "
           + f"kpads={kpads} wire={wire_sig}"
           + (f"|hp={len(hoisted[0])},{len(hoisted[1])}"
              if hoisted is not None else ""))
@@ -1269,7 +1602,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
     annotate(device_ids=list(devs))
     fn = _COMPILED.get(fp)
     if fn is None:
-        fn = _build_mesh_fn(an, kind, col_order, n_global,
+        fn = _build_mesh_fn(an, kind, col_order, mesh, Tl,
                             col_layout=col_layout)
         _COMPILED.put(fp, fn)
         fn = _compile_labeled(fn, kind)
@@ -1278,18 +1611,12 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
             pass
     params = None
     if hoisted is not None:
-        params = (torch.from_numpy(hoisted[0]).to(dev),
-                  torch.from_numpy(hoisted[1]).to(dev))
+        params = (to_positions(hoisted[0], mesh),
+                  to_positions(hoisted[1], mesh))
 
     # one delta pass for the whole table
     deleted, inserted = table.delta_overlay(req.ts, 0, 1 << 62)
-    if deleted:
-        dm = np.ones(n_pad * te.TILE, dtype=np.bool_)
-        dm[np.fromiter(sorted(deleted), dtype=np.int64,
-                       count=len(deleted))] = False
-        del_mask = to_device(dm, dev)
-    else:
-        del_mask = _all_true(n_pad)
+    del_mask = _del_mask(deleted, mesh, n_pad)
 
     from ..metrics import REGISTRY
 
@@ -1323,6 +1650,7 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
                        start=bounds[0][0], end=bounds[-1][1])
         FAILPOINTS.hit("mesh/hbm_oom", kind=kind, start=bounds[0][0],
                        end=bounds[-1][1])
+        _check_membership_epoch()
         # interruptible chunked dispatch: the same program runs over
         # range sub-bounds sized to the tidb_tpu_dispatch_chunk_ms
         # budget, touching only each chunk's rows.  Partial states fold
@@ -1429,6 +1757,7 @@ def _stream_filter(req, table, an, fn, datas, valids, del_mask, inserted,
                        end=bounds[-1][1])
         FAILPOINTS.hit("mesh/hbm_oom", kind="filter", start=bounds[0][0],
                        end=bounds[-1][1])
+        _check_membership_epoch()
         if tail:
             note_split(split_label, type(tail[0]).__name__)
         sub_bounds = chunk_bounds(bounds, chunk_budget_rows("filter"),

@@ -249,10 +249,11 @@ def _flip(op: str) -> str:
 
 
 class _DeviceCache:
-    """(store_uid, base_version, store_ci, tile_idx, device) -> (data,
-    valid) TILE-row tensors on the card.  Bounded by its byte cap and
-    counted in the device bytes the engine reports
-    (`parallel._hbm_bytes`), beside the whole-table column cache."""
+    """(store_uid, base_version, store_ci, tile_idx, position, device) ->
+    (data, valid) TILE-row tensors on that mesh position's device.
+    Bounded by its byte cap and counted in the device bytes the engine
+    reports (`parallel._hbm_bytes`), beside the whole-table column
+    cache."""
 
     def __init__(self, capacity_bytes: int = 8 << 30):
         from .cache import ByteCapCache
@@ -260,9 +261,9 @@ class _DeviceCache:
         self._c = ByteCapCache(capacity_bytes, name="tile")
 
     def get_tile(self, table, store_ci: int, tile_idx: int, start: int,
-                 end: int, device: torch.device):
+                 end: int, device: torch.device, pos: int = 0):
         key = (table.store_uid, table.base_version, store_ci, tile_idx,
-               str(device))
+               pos, str(device))
 
         def load():
             from ..trace import span
@@ -270,11 +271,8 @@ class _DeviceCache:
 
             with span("copr.transfer", col=store_ci, tile=tile_idx) as sp:
                 data, valid = _gather_tile(table, store_ci, start, end)
-                # the trace counts devices by id (ops.device_ids: -1 is
-                # the host)
-                sp.set(bytes=data.nbytes + valid.nbytes,
-                       device=(device.index or 0) if device.type == "cuda"
-                       else -1)
+                # the trace counts devices by their position id
+                sp.set(bytes=data.nbytes + valid.nbytes, device=pos)
                 return to_device(data, device), to_device(valid, device)
 
         return self._c.get_or_load(key, load)
@@ -284,9 +282,8 @@ class _DeviceCache:
         self._c.clear()
 
     def evict_device(self, device_id: int) -> int:
-        """Drop every tile placed on this device."""
-        name = "cpu" if device_id < 0 else f"cuda:{device_id}"
-        return self._c.evict_if(lambda k: k[4] == name)
+        """Drop every tile placed on this mesh position."""
+        return self._c.evict_if(lambda k: k[4] == device_id)
 
 
 def _gather_tile(table, store_ci: int, start: int, end: int):
@@ -825,9 +822,9 @@ def _build_tile_fn(an: _Analyzed, kind: str, col_order: List[int],
 
 
 def _tile_devices():
-    """The cards the per-tile path may place work on: the visible set
-    minus tripped breakers; an all-tripped set falls back to the full
-    list.  Tiles go round-robin over them (one card today)."""
+    """The mesh positions the per-tile path may place work on: every
+    position minus tripped breakers; an all-tripped set falls back to
+    the full list.  Tiles go round-robin over them."""
     from .. import ops
     from .device_health import DEVICE_HEALTH
     from .parallel import _Card
@@ -838,10 +835,10 @@ def _tile_devices():
 
 
 def _card_device(card) -> torch.device:
+    """The torch device of a mesh position."""
     from .. import ops
 
-    dev = ops.device()
-    return torch.device("cuda", card.id) if dev.type == "cuda" else dev
+    return ops.position_device(card.id)
 
 
 def run_base_torch(table, dag: DAG, start: int, end: int,
@@ -926,7 +923,7 @@ def run_base_torch(table, dag: DAG, start: int, end: int,
         for ci in col_order:
             d, v = DEVICE_CACHE.get_tile(
                 table, an.scan.columns[ci], tile_idx, tile_start,
-                min(tile_start + TILE, table.base_rows), dev)
+                min(tile_start + TILE, table.base_rows), dev, card.id)
             datas.append(d)
             valids.append(v)
         params = ()

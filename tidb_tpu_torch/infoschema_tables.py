@@ -488,8 +488,16 @@ def _tidb_tpu_engine(domain, isc):
         from .copr import torch_engine as te
 
         dev = ops.device()
-        rows.append(("mesh", "devices", "1"))
+        positions = ops.mesh_devices()
+        rows.append(("mesh", "devices", str(len(positions))))
         rows.append(("mesh", "platform", dev.type))
+        rows.append(("mesh", "positions", ",".join(
+            f"{pid}:{d}" for pid, d in positions)))
+        mesh = pl._MESH
+        if mesh is not None:
+            rows.append(("mesh", "current", ",".join(
+                str(pid) for pid in mesh.ids)))
+            rows.append(("mesh", "epoch", str(pl.mesh_epoch())))
         rows.append(("mesh", "tile_rows", str(te.TILE)))
         cache = pl.MESH_CACHE._c
         rows.append(("column_cache", "entries", str(len(cache))))
@@ -500,8 +508,9 @@ def _tidb_tpu_engine(domain, isc):
             rows.append((
                 "column_cache",
                 f"store={key[0]} ver={key[1]} col={key[2]}",
-                f"dtype={data.dtype} shape={list(data.shape)} "
-                f"bytes={data.nbytes} "
+                f"dtype={data[0].dtype} shards={len(data)} "
+                f"shape={list(data[0].shape)} bytes={data.nbytes} "
+                f"positions={list(key[3])} "
                 f"nulls={'none' if val[1] is None else 'bitmap'}",
             ))
         rows.append(("programs", "mesh_compiled", str(len(pl._COMPILED))))
@@ -530,10 +539,11 @@ def _tidb_tpu_engine(domain, isc):
     ("in_current_mesh", ty_int()), ("last_error", ty_string()),
 ])
 def _tidb_tpu_device_health(domain, isc):
-    """Per-device circuit-breaker state (the degraded-mesh failover
-    subsystem, copr/device_health.py): which chips are quarantined, why,
-    and whether the live mesh currently includes them — the operator view
-    the reference exposes for sick stores via pd/store state."""
+    """Per-position circuit-breaker state (the degraded-mesh failover
+    subsystem, copr/device_health.py): which mesh positions are
+    quarantined, why, and whether the live mesh currently includes them
+    — the operator view the reference exposes for sick stores via
+    pd/store state."""
     from .copr.device_health import DEVICE_HEALTH
 
     states = {st.device_id: st for st in DEVICE_HEALTH.snapshot()}
@@ -542,9 +552,11 @@ def _tidb_tpu_device_health(domain, isc):
 
     try:
         from . import ops
+        from .copr import parallel as pl
 
-        dev = ops.device()
-        for did in ops.device_ids():
+        mesh = pl._MESH
+        mesh_ids = set(mesh.ids) if mesh is not None else set()
+        for did, dev in ops.mesh_devices():
             st = states.pop(did, None)
             rows.append((
                 did, dev.type,
@@ -552,7 +564,7 @@ def _tidb_tpu_device_health(domain, isc):
                 st.error_count if st is not None else 0,
                 st.consecutive_errors if st is not None else 0,
                 st.trip_count if st is not None else 0,
-                1,
+                1 if did in mesh_ids else 0,
                 st.last_error if st is not None else "",
             ))
     except DeviceUnavailableError:

@@ -71,10 +71,12 @@ class PackInfo:
 class ColdColumn:
     """One cold-resident column: sharded packed codes + decode operand.
 
+    `packed` holds shard s's [Tl, TILE*bits/8] code bytes on position s's
+    device (an `ops.Shards`), so K2 decodes each shard where it lives.
     `operand` is the DEVICE-RESIDENT runtime dispatch argument (it never
-    enters the compiled fingerprint): the replicated scalar bias for
-    'range' dictionaries (decode = code + lo), the replicated value
-    vector for 'unique' ones.  Built ONCE at compress time — a
+    enters the compiled fingerprint), on every position: the scalar bias
+    for 'range' dictionaries (decode = code + lo), the value vector for
+    'unique' ones.  Built ONCE at compress time — a
     steady-state cold hit ships nothing over the link, not even the
     dictionary.  `nbytes` makes the object directly cacheable by
     ByteCapCache."""
@@ -210,14 +212,14 @@ def pack_codes(codes: np.ndarray, bits: int) -> np.ndarray:
     return np.bitwise_or.reduce(c << shifts, axis=1).astype(np.uint8)
 
 
-def compress_column(table, store_ci: int, n_pad: int,
+def compress_column(table, store_ci: int, mesh, n_pad: int,
                     info: Optional[PackInfo] = None) -> ColdColumn:
-    """Host-side compress + one packed transfer onto the card: the
-    cold-tier load.  Raises ValueError when the column is not packable
-    (callers fall back to the hot tier)."""
+    """Host-side compress + one packed transfer a shard onto the mesh:
+    the cold-tier load.  Raises ValueError when the column is not
+    packable (callers fall back to the hot tier)."""
     from .. import ops
     from ..copr import torch_engine as te
-    from ..copr.parallel import _full_dtype, to_device, torch_dtype
+    from ..copr.parallel import _full_dtype, place_shards, torch_dtype
 
     if info is None:
         info = pack_info(table, store_ci)
@@ -252,35 +254,38 @@ def compress_column(table, store_ci: int, n_pad: int,
     packed = pack_codes(flat, info.bits).reshape(n_pad, tile // vpb)
     from ..trace import span
 
-    dev = ops.device()
     with span("copr.transfer", col=store_ci, tier="cold",
               bits=info.bits) as sp:
         sp.set(bytes=packed.nbytes + max(packed_vals.nbytes, dt.itemsize))
-        packed_dev = to_device(packed, dev)
+        host = torch.from_numpy(packed)
+        if any(d.type == "cuda" for d in mesh.devices):
+            host = host.pin_memory()
+        packed_dev = place_shards(host, mesh, n_pad // mesh.size)
         if info.kind == "range":
-            operand = torch.tensor(info.lo, dtype=torch_dtype(dt),
-                                   device=dev)
+            operand = torch.tensor(info.lo, dtype=torch_dtype(dt))
         else:
-            operand = to_device(packed_vals, dev)
+            operand = torch.from_numpy(packed_vals)
+        operand = ops.on_positions(operand, mesh.devices)
     return ColdColumn(packed_dev, operand, packed_vals, info.bits,
                       info.cap, kind=info.kind, lo=info.lo)
 
 
 def _demote_encoder(kind: str, bits: int, cap: int, lo: int,
                     base_rows: int):
-    """The on-card re-encoder of one column class: wire values ->
-    bit-packed codes, byte-for-byte the layout `compress_column` builds
-    on the host (pad rows beyond base_rows pack to 0)."""
+    """The on-card re-encoder of one column class: one shard's wire
+    values (first global row `row0`) -> bit-packed codes, byte-for-byte
+    the layout `compress_column` builds on the host (pad rows beyond
+    base_rows pack to 0)."""
     vpb = 8 // bits
 
-    def encode(d, dvec=None):
+    def encode(d, dvec=None, row0: int = 0):
         flat = d.reshape(-1)
         if dvec is None:
             codes = torch.clamp(flat.to(torch.int64) - lo, 0, cap - 1)
         else:
             codes = torch.clamp(
                 torch.searchsorted(dvec, flat.to(dvec.dtype)), 0, cap - 1)
-        gofs = torch.arange(flat.shape[0], dtype=torch.int64,
+        gofs = torch.arange(row0, row0 + flat.shape[0], dtype=torch.int64,
                             device=flat.device)
         codes = torch.where(gofs < base_rows, codes,
                             torch.zeros_like(codes)).to(torch.uint8)
@@ -299,50 +304,53 @@ def recompress_from_device(table, store_ci: int, n_pad: int,
                            info: Optional[PackInfo],
                            hot_value) -> ColdColumn:
     """Demote a hot column to the cold tier by re-encoding ON THE CARD
-    from the evicted wire tensor: codes compute and bit-pack over the
-    already-resident data and stay on the card (one card: nothing to
-    re-shard, so nothing reads back and no host block is touched).
+    from the evicted wire tensors: each shard's codes compute and
+    bit-pack over its already-resident data and stay on its position
+    (the layout is the same, so nothing re-shards, nothing reads back
+    and no host block is touched).
 
     Raises when the column is not packable or the hot value is
     unusable."""
+    from .. import ops
     from ..copr import torch_engine as te
-    from ..copr.parallel import _full_dtype, to_device, torch_dtype
+    from ..copr.parallel import _full_dtype, torch_dtype
 
     if info is None:
         info = pack_info(table, store_ci)
     if info is None:
         raise ValueError(f"column {store_ci} is not cold-packable")
-    data = hot_value[0]  # the evicted [n_pad, TILE] wire tensor
+    shards = hot_value[0]  # the evicted [Tl, TILE] wire tensor a shard
     tile = te.TILE
     vpb = 8 // info.bits
+    Tl = n_pad // len(shards)
     dt = _full_dtype(table.cols[store_ci].ftype.kind)
-    dev = data.device
+    devices = [d.device for d in shards]
     if info.kind == "unique":
         packed_vals = dict_values(table, store_ci, info)
-        dvec = to_device(packed_vals, dev)
+        operand = ops.on_positions(torch.from_numpy(packed_vals), devices)
     else:
         packed_vals = np.zeros(0, dtype=dt)
-        dvec = None
+        operand = ops.on_positions(
+            torch.tensor(info.lo, dtype=torch_dtype(dt)), devices)
     encode = _demote_encoder(info.kind, info.bits, info.cap, info.lo,
                              table.base_rows)
     from ..trace import span
 
     with span("copr.transfer", col=store_ci, tier="cold-demote",
               bits=info.bits) as sp:
-        packed = encode(data, dvec).reshape(n_pad, tile // vpb)
+        packed = ops.Shards(
+            encode(d, operand[s] if info.kind == "unique" else None,
+                   row0=s * Tl * tile).reshape(Tl, tile // vpb)
+            for s, d in enumerate(shards))
         sp.set(bytes=0)
-        if info.kind == "range":
-            operand = torch.tensor(info.lo, dtype=torch_dtype(dt),
-                                   device=dev)
-        else:
-            operand = dvec
     return ColdColumn(packed, operand, packed_vals, info.bits, info.cap,
                       kind=info.kind, lo=info.lo)
 
 
 def evict_device(device_id: int) -> int:
-    """Device failover: drop cold entries placed on a dead device set
-    (key layout mirrors the mesh cache — device ids at index 3)."""
+    """Device failover: drop cold entries placed on a mesh holding this
+    position (key layout mirrors the mesh cache — position ids at index
+    3)."""
     return COLD_CACHE.evict_if(lambda k: device_id in k[3])
 
 

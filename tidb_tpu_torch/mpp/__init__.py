@@ -5,16 +5,17 @@ ExchangeReceiver hash shuffles feeding per-node hash joins).  Where the
 reference ships rows between TiFlash nodes over gRPC, this engine keeps
 both join sides resident on the card and runs partition, exchange and
 local join as one sequence of torch ops — the join never touches the
-host until its (row or partial-agg) output is read back.  One card is
-one shard (S = 1): the exchange is then the identity, and the bucket
-pack and the local join still run.
+host until its (row or partial-agg) output is read back.  The mesh's S
+shards (`ops.mesh_devices`) each hold a slice of both sides; the
+exchange is an all_to_all over them (the identity at S = 1), and the
+bucket pack and the local join run on every shard.
 
 Layering:
 
 - exchange.py — device-side primitives: hash partition ids, static-
   capacity bucket packing with an overflow count, exchange / replicate
-  (identities at S = 1), key composition, sorted build and the two-pass
-  join expansion.
+  (all_to_all / all_gather over the per-shard lists), key composition,
+  sorted build and the two-pass join expansion.
 - engine.py — run_mpp_join: eligibility, hot-tier column reuse, program
   cache, the shuffle -> broadcast -> host ladder (the `mpp/exchange`
   failpoint), host chunk assembly, scalar and grouped partial

@@ -2,13 +2,14 @@
 
 Reference: TiFlash's MPP task graph — ExchangeSender hash-partitions each
 plan fragment's rows, ExchangeReceiver reassembles partitions per node,
-and a per-node hash join runs on co-partitioned inputs.  On one card
-both sides' base tables are already resident (`copr.parallel.MESH_CACHE`,
-the hot tier), the "fragments" are one shard (S = 1), the
-sender/receiver pair is the bucket pack plus an exchange that is the
-identity at S = 1, and the co-partitioned local join is argsort +
-searchsorted: one sequence of device ops from scan to joined rows (or
-partial aggregates).
+and a per-node hash join runs on co-partitioned inputs.  Here both
+sides' base tables are already resident, sharded over the mesh
+(`copr.parallel.MESH_CACHE`, the hot tier), the "fragments" are the
+mesh's S shards, the sender/receiver pair is the bucket pack plus the
+all_to_all exchange (`exchange.exchange`), and the co-partitioned local
+join is argsort + searchsorted on each shard: device ops from scan to
+joined rows (or partial aggregates), with overflow counts summed across
+shards and read once every shard was issued.
 
 Join-strategy ladder (README "MPP exchange engine"):
 
@@ -47,14 +48,18 @@ from ..chunk import Chunk, Column
 from ..copr.ir import DAG, serialize_expr
 from ..copr.parallel import (
     DISPATCH_LOCK,
+    MAX_MESH_ATTEMPTS,
     MESH_RANGE_SLOTS,
-    _all_true,
     _check_breaker,
+    _check_membership_epoch,
     _cols_env,
+    _del_mask,
     _handle_mesh_failure,
     _layout,
     _mesh_masks,
-    to_device,
+    get_mesh,
+    load_columns,
+    local_bounds,
 )
 from ..copr import torch_engine as te
 from ..copr.torch_engine import _Analyzed, _fingerprint, _to_state_dtype
@@ -133,9 +138,6 @@ _COMPILED = ProgramCache("mpp")
 
 OUT_CHUNK_ROWS = 1 << 16
 
-#: shards of the exchange: one card
-S_LOCAL = 1
-
 
 def _pow2ceil(n: int) -> int:
     c = 16
@@ -152,43 +154,23 @@ def _join_slack() -> float:
     return float(os.environ.get("TIDB_TPU_MPP_JOIN_SLACK", "1.0"))
 
 
-def _group_budget(spec) -> Tuple[int, int]:
+def _group_budget(spec, S: int) -> Tuple[int, int]:
     """(budget, static group capacity) of a grouped pushdown: the
     capacity pow2-buckets the budget and pads it to a multiple of S, so
     every shard emits an equal slice of the merged groups."""
     budget = (int(os.environ.get("TIDB_TPU_MPP_GROUP_BUDGET", "0"))
               or spec.group_budget or 4096)
     cap_g0 = _pow2ceil(budget)
-    return budget, S_LOCAL * (-(-cap_g0 // S_LOCAL))
-
-
-def load_columns(table, store_cis):
-    """(data, valid) of several columns from the hot tier
-    (`MESH_CACHE.get_column`), loaded concurrently on the transfer
-    pool.  MPP sides always read hot: they never go through the cold
-    layout."""
-    from ..copr.parallel import MESH_CACHE, _xfer_pool
-
-    cis = list(store_cis)
-    if len(cis) <= 1:
-        return [MESH_CACHE.get_column(table, ci) for ci in cis]
-    # pool workers re-attach to the submitter's span so transfer spans
-    # land in the query's trace (contextvars don't cross threads)
-    from ..trace import current_span, run_attached
-
-    parent = current_span()
-    futs = [_xfer_pool().submit(run_attached, parent,
-                                MESH_CACHE.get_column, table, ci)
-            for ci in cis]
-    return [f.result() for f in futs]
+    return budget, S * (-(-cap_g0 // S))
 
 
 class _SideState:
     """Everything one side contributes to the program: analysis, layout,
     device tensors, range bounds."""
 
-    def __init__(self, storage, side: MPPJoinSide, ts: int):
+    def __init__(self, storage, side: MPPJoinSide, ts: int, mesh):
         self.side = side
+        self.mesh = mesh
         self.table = storage.table(side.table_id)
         t = self.table
         if t.base_rows == 0:
@@ -220,7 +202,7 @@ class _SideState:
         for ft in an.scan.ftypes:
             if ft.kind == TypeKind.DECIMAL and ft.is_wide_decimal:
                 raise MPPIneligible("wide-decimal column")
-        self.n_tiles, self.n_pad, self.Tl = _layout(t.base_rows, S_LOCAL,
+        self.n_tiles, self.n_pad, self.Tl = _layout(t.base_rows, mesh.size,
                                                     table=t)
         self.n_local = self.Tl * te.TILE
         self.col_order = list(range(len(an.scan.columns)))
@@ -228,23 +210,18 @@ class _SideState:
                        for kr in side.ranges]
 
     def load(self):
-        """Device tensors: cached hot columns + deletion mask."""
+        """Device tensors (each an `ops.Shards` over the mesh): cached hot
+        columns + deletion mask."""
         datas, valids = [], []
         for d, v in load_columns(
-                self.table,
+                self.mesh, self.table,
                 [self.an.scan.columns[ci] for ci in self.col_order]):
             datas.append(d)
             valids.append(v)
         self.datas, self.valids = datas, valids
-        self.wire_sig = [(str(d.dtype), v is None)
+        self.wire_sig = [(str(d[0].dtype), v is None)
                          for d, v in zip(datas, valids)]
-        if self.deleted:
-            dm = np.ones(self.n_pad * te.TILE, dtype=np.bool_)
-            dm[np.fromiter(sorted(self.deleted), dtype=np.int64,
-                           count=len(self.deleted))] = False
-            self.del_mask = to_device(dm, ops.device())
-        else:
-            self.del_mask = _all_true(self.n_pad)
+        self.del_mask = _del_mask(self.deleted, self.mesh, self.n_pad)
 
     def exchange_cols(self):
         """(scan position, env dtype itemsize) for every exchanged
@@ -331,10 +308,11 @@ def rebased_remap(rm, src_idx: int):
     return out
 
 
-def remap_operands(remaps) -> tuple:
-    """The mapping operands on the card, in group-key order."""
-    dev = ops.device()
-    return tuple(r.on_device(dev) for r in (remaps or ()) if r is not None)
+def remap_operands(remaps, mesh) -> tuple:
+    """The mapping operands on every position (an `ops.Shards` each), in
+    group-key order."""
+    return tuple(ops.Shards(r.on_device(d) for d in mesh.devices)
+                 for r in (remaps or ()) if r is not None)
 
 
 def _compound_pack(ps: "_SideState", bs: "_SideState"):
@@ -353,14 +331,17 @@ def _compound_pack(ps: "_SideState", bs: "_SideState"):
 
 
 def _shard_side(an: _Analyzed, col_order, n_local: int):
-    """Returns fn(datas, valids, del_mask, bounds) -> (cols env, selected
-    row mask) for one side, evaluated pre-exchange.  On one card the
-    shard's rows are the table's, so the range slots clip rows [0,
-    n_local) directly."""
+    """Returns fn(s, datas, valids, del_mask, bounds) -> (cols env,
+    selected row mask) for shard s of one side, evaluated pre-exchange:
+    the global range bounds clip to the shard's rows [s*n_local,
+    (s+1)*n_local)."""
 
-    def prep(datas, valids, del_mask, bounds):
-        cols = _cols_env(an, col_order, datas, valids, 0, n_local)
-        m = _mesh_masks(del_mask, bounds, 0, n_local)
+    def prep(s, datas, valids, del_mask, bounds):
+        cols = _cols_env(an, col_order, [d[s] for d in datas],
+                         [None if v is None else v[s] for v in valids],
+                         0, n_local)
+        m = _mesh_masks(del_mask[s], local_bounds(bounds, s, n_local), 0,
+                        n_local)
         for c in an.conds:
             d, v = compile_expr(c, cols, n_local)
             m = m & v & (d != 0)
@@ -380,9 +361,9 @@ def _minmax_identity(d, want_max: bool):
 
 
 def scalar_partial_states(aggs, env, row_mask, n: int):
-    """Scalar (G=1) partial states of `aggs` over the rows `row_mask`
-    keeps: count -> 0-d, sum/avg -> (sum, count), min/max -> ([1]
-    partial, count).  One card: the cross-shard sum is the identity."""
+    """One shard's scalar (G=1) partial states of `aggs` over the rows
+    `row_mask` keeps: count -> 0-d, sum/avg -> (sum, count), min/max ->
+    ([1] partial, count)."""
     states = []
     for a in aggs:
         if a.name == "count":
@@ -408,60 +389,125 @@ def scalar_partial_states(aggs, env, row_mask, n: int):
     return states
 
 
-def grouped_phase(aggs, group_by, env, row_mask, n: int, cap_g: int,
+def merge_scalar_states(aggs, per_shard):
+    """The cross-shard merge of scalar partials: counts and sums add in
+    shard order on position 0's device (`ops.psum`); min/max stay
+    per-shard [S, 1] partials the host merges, as the JAX package's do."""
+    out = []
+    for i, a in enumerate(aggs):
+        rs = [st[i] for st in per_shard]
+        if a.name == "count":
+            out.append(ops.psum(rs))
+        elif a.name in ("sum", "avg"):
+            out.append((ops.psum([r[0] for r in rs]),
+                        ops.psum([r[1] for r in rs])))
+        else:
+            out.append((ops.gather0([r[0] for r in rs]),
+                        ops.psum([r[1] for r in rs])))
+    return out
+
+
+def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
                   remaps, rvals):
     """Grouped partial aggregation below the exchange, then the merge of
-    the gathered partials ON the card: sort-group the `n` joined rows
-    into the static cap_g budget (computed string keys re-map their
-    dictionary codes with K1 first), compact, gather every shard's
-    groups (the identity on one card) and merge them with a second
-    sort-group.  Returns (n_uniq per shard, merged n_uniq, merged keys,
-    merged states)."""
+    every shard's partials ON the card: each shard sort-groups its `n`
+    joined rows into the static cap_g budget (computed string keys
+    re-map their dictionary codes with K1 first) and compacts them; the
+    compacted groups are all-gathered (`exchange.replicate`), each shard
+    merges them with a second sort-group (the same result on every
+    shard) and emits its 1/S slice, and the slices gather on position
+    0.  `envs`, `row_masks` and each `rvals` operand are per shard.
+    Returns (per-shard n_uniq, merged n_uniq, merged keys, merged
+    states)."""
     from ..copr import fusion
     from ..copr.parallel import _key_device
 
+    S = len(envs)
     nk = len(group_by)
-    key_bits, key_flags = [], []
-    rslot = 0
-    for gi, g in enumerate(group_by):
-        rem = remaps[gi] if remaps is not None else None
-        if rem is not None:
-            # computed string key: post-join code-space gather through
-            # the runtime mapping operand (K1)
-            d0, v = env[rem.src_idx]
-            d = fusion.remap_codes(d0, rvals[rslot], n)
-            rslot += 1
+    gchunk = cap_g // S
+    outs = []
+    for s, (env, row_mask) in enumerate(zip(envs, row_masks)):
+        key_bits, key_flags = [], []
+        rslot = 0
+        for gi, g in enumerate(group_by):
+            rem = remaps[gi] if remaps is not None else None
+            if rem is not None:
+                # computed string key: post-join code-space gather
+                # through the runtime mapping operand (K1)
+                d0, v = env[rem.src_idx]
+                d = fusion.remap_codes(d0, rvals[rslot][s], n)
+                rslot += 1
+            else:
+                d, v = compile_expr(g, env, n)
+            k = _key_device(d)
+            key_bits.append(torch.where(v, k, torch.zeros_like(k)))
+            key_flags.append(v.to(torch.int64))
+        order, sm, skeys, seg, pos, n_uniq = fusion.sort_group_segments(
+            key_bits, key_flags, row_mask, cap_g)
+        states = fusion.grouped_partial_states(
+            aggs, lambda e, env=env: compile_expr(e, env, n), order, sm,
+            seg, cap_g)
+        slot_ok = (torch.arange(cap_g, dtype=torch.int64,
+                                device=row_mask.device)
+                   < torch.clamp(n_uniq, max=cap_g))
+        outs.append((n_uniq, [k[pos] for k in skeys], states, slot_ok))
+    g_keys = [ex.replicate([o[1][i] for o in outs])
+              for i in range(2 * nk)]
+    g_ok = ex.replicate([o[3] for o in outs])
+    g_states = []
+    for i, st in enumerate(outs[0][2]):
+        if isinstance(st, tuple):
+            g_states.append(tuple(ex.replicate([o[2][i][j] for o in outs])
+                                  for j in range(len(st))))
         else:
-            d, v = compile_expr(g, env, n)
-        k = _key_device(d)
-        key_bits.append(torch.where(v, k, torch.zeros_like(k)))
-        key_flags.append(v.to(torch.int64))
-    order, sm, skeys, seg, pos, n_uniq = fusion.sort_group_segments(
-        key_bits, key_flags, row_mask, cap_g)
-    states = fusion.grouped_partial_states(
-        aggs, lambda e: compile_expr(e, env, n), order, sm, seg, cap_g)
-    out_keys = [k[pos] for k in skeys]
-    slot_ok = (torch.arange(cap_g, dtype=torch.int64, device=row_mask.device)
-               < torch.clamp(n_uniq, max=cap_g))
-    g_keys = [ex.replicate(k, S_LOCAL) for k in out_keys]
-    g_ok = ex.replicate(slot_ok, S_LOCAL)
-    g_states = [tuple(ex.replicate(x, S_LOCAL) for x in s)
-                if isinstance(s, tuple) else ex.replicate(s, S_LOCAL)
-                for s in states]
-    mn_uniq, m_keys, m_states = fusion.merge_grouped_partials(
-        aggs, g_keys[:nk], g_keys[nk:], g_ok, g_states, cap_g)
-    # each shard emits its 1/S slice of the merged groups: all of them
-    return n_uniq, mn_uniq, list(m_keys), m_states
+            g_states.append(ex.replicate([o[2][i] for o in outs]))
+    m_slices = []
+    mn_uniq = None
+    for d in range(S):
+        mn, m_keys, m_states = fusion.merge_grouped_partials(
+            aggs, [k[d] for k in g_keys[:nk]], [k[d] for k in g_keys[nk:]],
+            g_ok[d],
+            [tuple(x[d] for x in st) if isinstance(st, tuple) else st[d]
+             for st in g_states], cap_g)
+        if mn_uniq is None:
+            mn_uniq = mn
+
+        def slc(y, d=d):
+            return y[d * gchunk:(d + 1) * gchunk]
+
+        m_slices.append(([slc(k) for k in m_keys],
+                         [tuple(slc(x) for x in st) if isinstance(st, tuple)
+                          else slc(st) for st in m_states]))
+    # the slices gather on position 0, in shard order
+    m_keys = [_gather_slices([m[0][i] for m in m_slices])
+              for i in range(len(m_slices[0][0]))]
+    m_states = []
+    for i, st in enumerate(m_slices[0][1]):
+        if isinstance(st, tuple):
+            m_states.append(tuple(_gather_slices([m[1][i][j]
+                                                  for m in m_slices])
+                                  for j in range(len(st))))
+        else:
+            m_states.append(_gather_slices([m[1][i] for m in m_slices]))
+    return [o[0] for o in outs], mn_uniq, m_keys, m_states
+
+
+def _gather_slices(parts):
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts])
 
 
 def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
-                  mode: str, cap_p: int, cap_b: int, cap_out: int,
+                  mode: str, S: int, cap_p: int, cap_b: int, cap_out: int,
                   cap_g: int, pack=None, remaps=None):
-    """The exchange program: scan+filter on both sides, partition
-    exchange (or build broadcast), two-pass count+emit local join
+    """The exchange program over the mesh's S shards: scan+filter on both
+    sides per shard, partition exchange (all_to_all) or build broadcast
+    (all_gather), the two-pass count+emit local join on each shard
     (non-unique and multi-column keys), then row emission, scalar
-    partial aggregation, or grouped partial aggregation merged ON the
-    card, so only O(G) group rows leave.
+    partial aggregation (summed across shards), or grouped partial
+    aggregation merged ON the card, so only O(G) group rows leave.
 
     `pack` = (los, cards) composes multi-column keys EXACTLY (stride
     packing over the union of both sides' column stats): no collision
@@ -470,11 +516,12 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
     keys); their mapping operands ride the trailing runtime args.
 
     fn(p_datas, p_valids, p_del, p_bounds, b_datas, b_valids, b_del,
-    b_bounds, *extra) returns (flags, payload): `flags` is one int64
-    tensor [partition overflow, emission overflow] (+ [per-shard group
-    overflow, merged group overflow, merged groups] when grouped) that
-    the host reads in ONE transfer; the payload stays on the card."""
-    S = S_LOCAL
+    b_bounds, *extra) — column operands `ops.Shards`, bounds global —
+    returns (flags, payload): `flags` is one int64 tensor [partition
+    overflow, emission overflow] (+ [per-shard group overflow, merged
+    group overflow, merged groups] when grouped), summed across shards,
+    that the host reads in ONE transfer; the payload stays on the card
+    (rows: one (keep, flat) a shard)."""
     p_an, b_an = ps.an, bs.an
     # capture ONLY scalars/analysis objects in the closure: the program
     # lives in _COMPILED, and closing over the _SideState objects would
@@ -488,6 +535,7 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
     aggs = spec.aggs
     group_by = spec.group_by
     grouped = aggs is not None and group_by is not None
+    shards = range(S)
 
     def mk_keys(cols_env, key_pos):
         """(join key, partition key): the join key is the EXACT packed
@@ -512,97 +560,114 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
         rvals = extra[1:] if grouped else ()
 
         # ---- build side: filter, partition, exchange ------------------
-        b_cols, bm = b_prep(b_datas, b_valids, b_del, b_bounds)
-        bk, bmix = mk_keys(b_cols, b_key_pos)
-        bsel = bm & key_valid(b_cols, b_key_pos)  # NULL keys never match
-        b_arrays = [bk]
-        for ci in b_order:
-            d, v = b_cols[ci]
-            b_arrays.append(d)
-            b_arrays.append(v)
-        zero = torch.zeros((), dtype=torch.int64, device=bk.device)
+        b_arrays, bsels, bmixes = [], [], []
+        for s in shards:
+            b_cols, bm = b_prep(s, b_datas, b_valids, b_del, b_bounds)
+            bk, bmix = mk_keys(b_cols, b_key_pos)
+            # NULL keys never match
+            bsels.append(bm & key_valid(b_cols, b_key_pos))
+            bmixes.append(bmix)
+            arrs = [bk]
+            for ci in b_order:
+                d, v = b_cols[ci]
+                arrs.append(d)
+                arrs.append(v)
+            b_arrays.append(arrs)
+        zero = torch.zeros((), dtype=torch.int64, device=bsels[0].device)
         if mode == "shuffle":
-            bpid = ex.partition_ids(bmix, S)
-            bucketed, bval, b_over = ex.pack_buckets(
-                bpid, bsel, S, cap_b, b_arrays)
-            recv_b = [ex.exchange(a, S) for a in bucketed]
-            b_ok = ex.exchange(bval, S)
+            recv_b, b_ok, b_over = ex.shuffle(b_arrays, bsels, bmixes,
+                                              cap_b)
         else:  # broadcast: replicate the whole filtered build side
-            recv_b = [ex.replicate(a, S) for a in b_arrays]
-            b_ok = ex.replicate(bsel, S)
+            recv_b = [ex.replicate([a[i] for a in b_arrays])
+                      for i in range(len(b_arrays[0]))]
+            b_ok = ex.replicate(bsels)
             b_over = zero
-        sbk, bord, nb = ex.sorted_build(recv_b[0], b_ok)
+        builds = [ex.sorted_build(recv_b[0][d], b_ok[d]) for d in shards]
 
         # ---- probe side ----------------------------------------------
-        p_cols, pm = p_prep(p_datas, p_valids, p_del, p_bounds)
-        pk, pmix = mk_keys(p_cols, p_key_pos)
-        pk_v = key_valid(p_cols, p_key_pos)
-        # left outer keeps NULL-key probe rows (they emit with NULL build
-        # cols); inner drops them pre-exchange
-        psel = pm if louter else pm & pk_v
-        p_arrays = [torch.where(pk_v, pk, torch.zeros_like(pk)), pk_v]
-        for ci in p_order:
-            d, v = p_cols[ci]
-            p_arrays.append(d)
-            p_arrays.append(v)
+        p_arrays, psels, pmixes = [], [], []
+        for s in shards:
+            p_cols, pm = p_prep(s, p_datas, p_valids, p_del, p_bounds)
+            pk, pmix = mk_keys(p_cols, p_key_pos)
+            pk_v = key_valid(p_cols, p_key_pos)
+            # left outer keeps NULL-key probe rows (they emit with NULL
+            # build cols); inner drops them pre-exchange
+            psels.append(pm if louter else pm & pk_v)
+            pmixes.append(torch.where(pk_v, pmix, torch.zeros_like(pmix)))
+            arrs = [torch.where(pk_v, pk, torch.zeros_like(pk)), pk_v]
+            for ci in p_order:
+                d, v = p_cols[ci]
+                arrs.append(d)
+                arrs.append(v)
+            p_arrays.append(arrs)
         if mode == "shuffle":
-            ppid = ex.partition_ids(
-                torch.where(pk_v, pmix, torch.zeros_like(pmix)), S)
-            bucketed, pval, p_over = ex.pack_buckets(
-                ppid, psel, S, cap_p, p_arrays)
-            recv_p = [ex.exchange(a, S) for a in bucketed]
-            p_ok = ex.exchange(pval, S)
+            recv_p, p_ok, p_over = ex.shuffle(p_arrays, psels, pmixes,
+                                              cap_p)
         else:  # probe rows stay local on the broadcast rung
-            recv_p = p_arrays
-            p_ok = psel
+            recv_p = [[a[i] for a in p_arrays]
+                      for i in range(len(p_arrays[0]))]
+            p_ok = psels
             p_over = zero
-        rpk, rpk_v = recv_p[0], recv_p[1]
 
-        # ---- two-pass count+emit local join --------------------------
-        src, bidx, out_valid, matched, j_over = ex.expand_matches(
-            sbk, bord, nb, rpk, p_ok, rpk_v & p_ok, cap_out, louter)
-        overflow = b_over + p_over
-        probe_out = [(recv_p[2 + 2 * j][src], recv_p[3 + 2 * j][src])
-                     for j in range(len(p_order))]
-        hit = matched
-        if len(p_key_pos) > 1 and pack is None:
-            # multi-column keys exchange/sort on a MIX-HASH: candidate
-            # spans can hold colliding unequal keys, so re-verify TRUE
-            # per-column equality before any row counts
-            for kp, kb in zip(p_key_pos, b_key_pos):
-                jp = p_order.index(kp)
-                jb = b_order.index(kb)
-                hit = hit & (probe_out[jp][0].to(torch.int64)
-                             == recv_b[1 + 2 * jb][bidx].to(torch.int64))
-        build_out = [(recv_b[1 + 2 * j][bidx],
-                      hit & recv_b[2 + 2 * j][bidx])
-                     for j in range(len(b_order))]
+        # ---- two-pass count+emit local join, shard by shard ----------
+        overflow = b_over + p_over.to(b_over.device)
+        j_overs, rows, envs, row_masks = [], [], [], []
+        for d in shards:
+            sbk, bord, nb = builds[d]
+            rpk, rpk_v = recv_p[0][d], recv_p[1][d]
+            src, bidx, out_valid, matched, j_over = ex.expand_matches(
+                sbk, bord, nb, rpk, p_ok[d], rpk_v & p_ok[d], cap_out,
+                louter)
+            j_overs.append(j_over)
+            probe_out = [(recv_p[2 + 2 * j][d][src],
+                          recv_p[3 + 2 * j][d][src])
+                         for j in range(len(p_order))]
+            hit = matched
+            if len(p_key_pos) > 1 and pack is None:
+                # multi-column keys exchange/sort on a MIX-HASH:
+                # candidate spans can hold colliding unequal keys, so
+                # re-verify TRUE per-column equality before any row counts
+                for kp, kb in zip(p_key_pos, b_key_pos):
+                    jp = p_order.index(kp)
+                    jb = b_order.index(kb)
+                    hit = hit & (probe_out[jp][0].to(torch.int64)
+                                 == recv_b[1 + 2 * jb][d][bidx].to(
+                                     torch.int64))
+            build_out = [(recv_b[1 + 2 * j][d][bidx],
+                          hit & recv_b[2 + 2 * j][d][bidx])
+                         for j in range(len(b_order))]
+            if aggs is None:
+                keep = out_valid if louter else out_valid & hit
+                rows.append((keep, probe_out + build_out))
+                continue
+            # ---- partial aggregation (inner join only) ---------------
+            wp = len(p_order)
+            env = {ci: probe_out[j] for j, ci in enumerate(p_order)}
+            for j in range(len(b_order)):
+                env[wp + j] = build_out[j]
+            envs.append(env)
+            row_masks.append(out_valid & hit)
+        j_over = ops.psum(j_overs)
 
         if aggs is None:
-            keep = out_valid if louter else out_valid & hit
-            return (torch.stack([overflow, j_over]),
-                    (keep, probe_out + build_out))
-
-        # ---- partial aggregation (inner join only) -------------------
-        wp = len(p_order)
-        env = {ci: probe_out[j] for j, ci in enumerate(p_order)}
-        for j in range(len(b_order)):
-            env[wp + j] = build_out[j]
-        row_mask = out_valid & hit
+            return torch.stack([overflow, j_over]), rows
         if grouped:
-            n_uniq, mn_uniq, m_keys, m_states = grouped_phase(
-                aggs, group_by, env, row_mask, cap_out, cap_g, remaps,
+            n_uniqs, mn_uniq, m_keys, m_states = grouped_phase(
+                aggs, group_by, envs, row_masks, cap_out, cap_g, remaps,
                 rvals)
             # the BUDGET is a runtime scalar: overflow is detected on the
             # card against it, but only the pow2 capacity shapes the
             # program
-            over_l = torch.clamp(n_uniq - gbudget, min=0)
+            over_l = ops.psum([torch.clamp(n - gbudget, min=0)
+                               for n in n_uniqs])
             over_m = torch.clamp(mn_uniq - gbudget, min=0)
-            return (torch.stack([overflow, j_over, over_l, over_m,
-                                 mn_uniq]),
+            dev0 = overflow.device
+            return (torch.stack([overflow, j_over, over_l.to(dev0),
+                                 over_m.to(dev0), mn_uniq.to(dev0)]),
                     (m_keys, m_states))
-        return (torch.stack([overflow, j_over]),
-                scalar_partial_states(aggs, env, row_mask, cap_out))
+        return (torch.stack([overflow, j_over]), merge_scalar_states(
+            aggs, [scalar_partial_states(aggs, env, rm, cap_out)
+                   for env, rm in zip(envs, row_masks)]))
 
     return prog
 
@@ -626,18 +691,26 @@ def _to_column(table, an: _Analyzed, pos: int, ft, data: np.ndarray,
     return Column(ft, data.astype(ft.np_dtype), valid)
 
 
-def select_rows(keep, flat):
-    """The kept rows of every (data, valid) pair, selected on the card
-    and read back: a list of numpy (data, valid) pairs."""
-    sel = torch.nonzero(keep).reshape(-1)
-    return [(d[sel].cpu().numpy(), v[sel].cpu().numpy()) for d, v in flat]
+def select_rows(rows):
+    """The kept rows of every (data, valid) pair of every shard, selected
+    on each shard's device and read back in shard order: one numpy
+    (data, valid) pair a column.  `rows` holds one (keep, [(data, valid),
+    ...]) a shard."""
+    sels = [torch.nonzero(keep).reshape(-1) for keep, _flat in rows]
+    per = [[(d[sel].cpu().numpy(), v[sel].cpu().numpy()) for d, v in flat]
+           for sel, (_keep, flat) in zip(sels, rows)]
+    if len(per) == 1:
+        return per[0]
+    return [(np.concatenate([p[j][0] for p in per]),
+             np.concatenate([p[j][1] for p in per]))
+            for j in range(len(per[0]))]
 
 
 def _assemble_rows(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
-                   keep, flat) -> List[Chunk]:
+                   rows) -> List[Chunk]:
     louter = spec.kind == "left_outer"
     wp = len(ps.col_order)
-    host = select_rows(keep, flat)
+    host = select_rows(rows)
     probe_cols, build_cols = [], []
     for j, ci in enumerate(ps.col_order):
         d, v = host[j]
@@ -813,9 +886,8 @@ def read_flags(flags) -> List[int]:
 
 
 def _exchange_bytes(mode: str, ps: _SideState, bs: _SideState,
-                    cap_p: int, cap_b: int) -> int:
+                    cap_p: int, cap_b: int, S: int) -> int:
     """Exchange traffic the program moved (static shapes)."""
-    S = S_LOCAL
     if mode == "shuffle":
         per_pair = 8 + 1  # key + bucket validity
         for _ci, isz in ps.exchange_cols():
@@ -841,10 +913,11 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
     from ..lifecycle import dispatch_admission
     from ..trace import annotate
 
-    S = S_LOCAL
-    mesh_ids = ops.device_ids()
-    ps = _SideState(storage, spec.probe, spec.ts)
-    bs = _SideState(storage, spec.build, spec.ts)
+    mesh = get_mesh()
+    S = mesh.size
+    mesh_ids = mesh.ids
+    ps = _SideState(storage, spec.probe, spec.ts, mesh)
+    bs = _SideState(storage, spec.build, spec.ts, mesh)
     if mode == "broadcast" and bs.table.base_rows > DEVICE_JOIN_BUILD_MAX:
         raise MPPIneligible(
             f"build side {bs.table.base_rows} rows exceeds broadcast cap")
@@ -857,7 +930,7 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
     n_recv = S * cap_p if mode == "shuffle" else ps.n_local
     cap_out = max(int(_join_slack() * n_recv), 16)
     grouped = spec.aggs is not None and spec.group_by is not None
-    budget, cap_g = _group_budget(spec) if grouped else (0, 0)
+    budget, cap_g = _group_budget(spec, S) if grouped else (0, 0)
 
     # exact compound-key packing for multi-column keys: the union of both
     # sides' column stats strides every key into ONE int64, so equality
@@ -889,7 +962,8 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
         group_sig = json.dumps(
             [serialize_expr(g) for g in spec.group_by], sort_keys=True)
     fp = (f"mpp|{mode}|{spec.kind}|pil={spec.probe_is_left}"
-          f"|S={S} devs={mesh_ids} caps={cap_p},{cap_b},{cap_out}"
+          f"|S={S} devs={mesh_ids}@{mesh.where}"
+          f" caps={cap_p},{cap_b},{cap_out}"
           f"|p:{_fingerprint(ps.an, 'filter')}|Tl={ps.Tl}"
           f"|k={spec.probe.key_pos}|wire={ps.wire_sig}"
           f"|b:{_fingerprint(bs.an, 'filter')}|Tl={bs.Tl}"
@@ -900,7 +974,7 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
              if remaps else ""))
     fn = _COMPILED.get(fp)
     if fn is None:
-        fn = _build_mpp_fn(spec, ps, bs, mode, cap_p, cap_b, cap_out,
+        fn = _build_mpp_fn(spec, ps, bs, mode, S, cap_p, cap_b, cap_out,
                            cap_g, pack=pack, remaps=remaps)
         _COMPILED.put(fp, fn)
 
@@ -918,7 +992,11 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
     args = (ps.datas, ps.valids, ps.del_mask, ps.bounds,
             bs.datas, bs.valids, bs.del_mask, bs.bounds)
     if grouped:
-        args = args + (budget,) + remap_operands(remaps)
+        args = args + (budget,) + remap_operands(remaps, mesh)
+    # dispatch-time membership guard: a membership move between the mesh
+    # build and this exchange raises the typed retriable
+    # CoordEpochMismatch; the rung loop rebuilds and re-runs
+    _check_membership_epoch()
     with dispatch_admission(DISPATCH_LOCK):
         # admission charges the exchange's device time to the
         # statement's resource group: the flags' readback waits for it
@@ -943,7 +1021,7 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
                 f"distinct groups over budget {budget} "
                 f"(per-shard over {over_l}, merged over {over_m})")
 
-    nbytes = _exchange_bytes(mode, ps, bs, cap_p, cap_b)
+    nbytes = _exchange_bytes(mode, ps, bs, cap_p, cap_b, S)
     REGISTRY.inc("mpp_exchange_bytes_total", float(nbytes))
     annotate(bytes=nbytes, device_ids=list(mesh_ids))
     DEVICE_HEALTH.record_success(mesh_ids)
@@ -954,8 +1032,7 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
                                  payload[1], remaps=remaps)
     if spec.aggs is not None:
         return _assemble_partials(spec.aggs, payload)
-    keep, flat = payload
-    return _assemble_rows(spec, ps, bs, keep, flat)
+    return _assemble_rows(spec, ps, bs, payload)
 
 
 def run_mpp_join(storage, spec: MPPJoinSpec) -> Tuple[List[Chunk], str]:
@@ -970,6 +1047,7 @@ def run_mpp_join(storage, spec: MPPJoinSpec) -> Tuple[List[Chunk], str]:
     successful grouped pushdown reports mode suffix "+grouped"."""
     import dataclasses
 
+    from ..coord import CoordEpochMismatch
     from ..errors import TiDBTPUError
     from ..lifecycle import current_scope
     from ..trace import annotate, span
@@ -1021,6 +1099,12 @@ def run_mpp_join(storage, spec: MPPJoinSpec) -> Tuple[List[Chunk], str]:
                 mode = "broadcast"  # immune to probe-side skew
                 continue
             raise MPPIneligible(f"partition overflow: {e}")
+        except CoordEpochMismatch:
+            # membership moved between the mesh build and the exchange:
+            # rebuild from the new broadcast and re-run the same rung
+            if attempts + 1 >= MAX_MESH_ATTEMPTS:
+                raise
+            attempts += 1
         except (MPPIneligible, KeyboardInterrupt, SystemExit,
                 GeneratorExit, TiDBTPUError):
             # semantic errors (kill/quota/lock) keep their meaning; they

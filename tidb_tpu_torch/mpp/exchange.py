@@ -11,9 +11,12 @@ scalar the host checks (the MeshAggOverflow contract of
 copr/parallel.py applied to exchanges); the caller then steps down the
 join-strategy ladder.
 
-One card is one shard (S = 1): `exchange` and `replicate` are then a
-reshape, and they take S explicitly so that a multi-card mesh can put
-NCCL all_to_all / all_gather behind the same signature.
+The exchange runs over the mesh's S shards (`ops.mesh_devices`), each
+shard's arrays on its own position's device: `exchange` (all_to_all)
+and `replicate` (all_gather) take the per-shard list and return one, as
+explicit copies in a fixed order (shard d concatenates what it receives
+in source order), so every run moves the same rows to the same slots.
+At S = 1 both are a reshape.
 
 Every sort here is STABLE (`torch.sort(..., stable=True)`): the order of
 duplicate build keys sets the emission order, and so the order of float
@@ -28,6 +31,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import ops
 
 # splitmix64's multiplicative constants, wrapped into int64 — spreads
 # clustered keys (sequential order keys, FK ranges) across partitions so
@@ -82,26 +87,46 @@ def pack_buckets(pid, pack_mask, n_parts: int, cap: int,
     return out, bucket_valid, overflow
 
 
-def _one_shard(S: int, what: str):
-    if S != 1:
-        raise NotImplementedError(
-            f"{what} over {S} shards needs the multi-card mesh")
+def exchange(bucketed: Sequence) -> List:
+    """all_to_all over the shards: `bucketed[s]` is shard s's [S, cap]
+    pack, whose row d is its partition destined for shard d.  Returns
+    one [S*cap] array a shard, on that shard's device: row block j of
+    shard d's array is the partition shard j sent it."""
+    S = len(bucketed)
+    if S == 1:
+        return [bucketed[0].reshape(-1)]
+    return [torch.cat([bucketed[s][d].to(bucketed[d].device)
+                       for s in range(S)])
+            for d in range(S)]
 
 
-def exchange(bucketed, S: int = 1):
-    """all_to_all one [S, cap] bucketed array: row d of the input is this
-    shard's partition destined for shard d; row j of the output is the
-    partition shard j sent here.  Flattened to [S*cap] local rows.  On
-    one card the only partition is this shard's own."""
-    _one_shard(S, "exchange")
-    return bucketed.reshape(-1)
+def replicate(local: Sequence) -> List:
+    """all_gather: every shard receives every shard's array, flattened
+    and concatenated in shard order, on its own device (the
+    broadcast-join rung: the build side is replicated instead of
+    partitioned)."""
+    S = len(local)
+    if S == 1:
+        return [local[0].reshape(-1)]
+    flat = [x.reshape(-1) for x in local]
+    return [torch.cat([x.to(local[d].device) for x in flat])
+            for d in range(S)]
 
 
-def replicate(local, S: int = 1):
-    """all_gather a per-shard array to every shard (the broadcast-join
-    rung: the build side is replicated instead of partitioned)."""
-    _one_shard(S, "replicate")
-    return local.reshape(-1)
+def shuffle(arrays: Sequence, sel: Sequence, mix: Sequence,
+            cap: int) -> Tuple[List, List, object]:
+    """The hash shuffle of every shard's rows: shard s packs its
+    `arrays[s]` (the rows `sel[s]` keeps) into [S, cap] buckets by the
+    partition ids of `mix[s]`, and each array goes all_to_all.  Returns
+    (received [array][shard], received validity [shard], the buckets'
+    overflow summed in shard order)."""
+    S = len(arrays)
+    packs = [pack_buckets(partition_ids(mix[s], S), sel[s], S, cap,
+                          arrays[s]) for s in range(S)]
+    recv = [exchange([p[0][i] for p in packs])
+            for i in range(len(arrays[0]))]
+    return recv, exchange([p[1] for p in packs]), \
+        ops.psum([p[2] for p in packs])
 
 
 def combine_keys(keys):

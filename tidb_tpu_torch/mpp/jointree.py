@@ -11,10 +11,10 @@ module runs that ladder on the card:
   two-pass count+emit local join — the exchange/local-join primitives
   of mpp/exchange.py);
 - the intermediate result BETWEEN rungs is a set of device tensors (one
-  (data, validity) pair per joined column plus a live-row mask): it
-  never leaves the card, so a k-way join is k dispatches with ZERO host
-  transfers between them (trace-asserted: no `copr.transfer` spans
-  between `mpp.rung` spans on a warm cache);
+  (data, validity) pair per joined column plus a live-row mask, one
+  tensor a mesh shard): it never leaves the mesh, so a k-way join is k
+  dispatches with ZERO host transfers between them (trace-asserted: no
+  `copr.transfer` spans between `mpp.rung` spans on a warm cache);
 - semi / anti-semi rungs (decorrelated EXISTS/IN subqueries) filter the
   intermediate in place — a single searchsorted span-count when the key
   is single-column and unconditioned, the full pair expansion when
@@ -49,8 +49,11 @@ from ..chunk import Chunk, Column
 from ..copr.ir import deserialize_expr, serialize_expr
 from ..copr.parallel import (
     DISPATCH_LOCK,
+    MAX_MESH_ATTEMPTS,
     _check_breaker,
+    _check_membership_epoch,
     _handle_mesh_failure,
+    get_mesh,
 )
 from ..copr.torch_engine import (_fingerprint, _reindex_expr,
                                  rewrite_for_dict_resolved)
@@ -61,7 +64,6 @@ from ..types import TypeKind
 from . import exchange as ex
 from .engine import (
     _COMPILED,
-    S_LOCAL,
     MPPGroupedAggOverflow,
     MPPIneligible,
     MPPJoinSide,
@@ -78,6 +80,7 @@ from .engine import (
     assemble_grouped,
     grouped_phase,
     grouped_pushdown_enabled,
+    merge_scalar_states,
     read_flags,
     read_groups,
     read_scalars,
@@ -181,13 +184,15 @@ def _slot_resolver(spec: MPPJoinTreeSpec, states, n_slots: int,
 
 
 def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
-                   n_in: int, cap_p: int, cap_b: int, cap_out: int,
+                   S: int, n_in: int, cap_p: int, cap_b: int, cap_out: int,
                    conds_rw, elide_probe: bool = False):
-    """One rung's exchange program.  Inputs: the intermediate tensors
-    (rung 0 builds them inline from side 0's scan) + the build side's
-    cached scan columns.  Outputs: (flags, next intermediate slots,
-    live-row mask) — the flags one int64 tensor [partition overflow,
-    emission overflow], the rest staying on the card.
+    """One rung's exchange program over the mesh's S shards.  Inputs: the
+    intermediate (one tensor a shard per slot; rung 0 builds it inline
+    from side 0's scan) + the build side's cached scan columns
+    (`ops.Shards`).  Outputs: (flags, next intermediate slots, live-row
+    mask, each one tensor a shard) — the flags one int64 tensor
+    [partition overflow, emission overflow] summed across shards, the
+    rest staying on the card.
 
     `elide_probe`: the caller proved the intermediate is ALREADY
     hash-partitioned by this rung's key slots (the previous shuffle rung
@@ -196,7 +201,6 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     from ..copr.torch_eval import compile_expr
 
     rung = spec.rungs[r]
-    S = S_LOCAL
     bs = states[rung.side]
     first = r == 0
     n_slots = _slots_of_prefix(spec, r)
@@ -215,132 +219,155 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     # semi/anti rungs then never touch the emission buffer at all
     fast_filter = (kind in ("semi", "anti_semi") and not multi
                    and not conds_rw)
+    shards = range(S)
 
     def prog(*args):
         off = 0
         if first:
             p_datas, p_valids, p_del, p_bounds = args[:4]
             off = 4
-            cols0, m0 = p_prep(p_datas, p_valids, p_del, p_bounds)
-            slots = [cols0[ci] for ci in p_order0]
-            mask = m0
+            slots, mask = [], []
+            for s in shards:
+                cols0, m0 = p_prep(s, p_datas, p_valids, p_del, p_bounds)
+                slots.append([cols0[ci] for ci in p_order0])
+                mask.append(m0)
         else:
-            slots = []
-            for _s in range(n_slots):
-                slots.append((args[off], args[off + 1]))
+            slots = [[] for _ in shards]
+            for _i in range(n_slots):
+                for s in shards:
+                    slots[s].append((args[off][s], args[off + 1][s]))
                 off += 2
             mask = args[off]
             off += 1
         b_datas, b_valids, b_del, b_bounds = args[off:off + 4]
 
         # ---- probe (intermediate) side -------------------------------
-        keys = [slots[s][0].to(torch.int64) for s in left_slots]
-        kv = slots[left_slots[0]][1]
-        for s in left_slots[1:]:
-            kv = kv & slots[s][1]
-        mix = ex.combine_keys(keys)
-        if kind in ("inner", "semi"):
-            psel = mask & kv
-        else:  # left_outer / anti_semi keep NULL-key rows (unmatched)
-            psel = mask
-        mix0 = torch.where(kv, mix, torch.zeros_like(mix))
-        p_arrays = [mix0, kv]
-        for d, v in slots:
-            p_arrays.append(d)
-            p_arrays.append(v)
-        zero = torch.zeros((), dtype=torch.int64, device=mix.device)
+        p_arrays, psels, pmixes, zero = [], [], [], None
+        for s in shards:
+            sl = slots[s]
+            keys = [sl[i][0].to(torch.int64) for i in left_slots]
+            kv = sl[left_slots[0]][1]
+            for i in left_slots[1:]:
+                kv = kv & sl[i][1]
+            mix = ex.combine_keys(keys)
+            if kind in ("inner", "semi"):
+                psels.append(mask[s] & kv)
+            else:  # left_outer / anti_semi keep NULL-key rows (unmatched)
+                psels.append(mask[s])
+            mix0 = torch.where(kv, mix, torch.zeros_like(mix))
+            pmixes.append(mix0)
+            arrs = [mix0, kv]
+            for d, v in sl:
+                arrs.append(d)
+                arrs.append(v)
+            p_arrays.append(arrs)
+            if zero is None:
+                zero = torch.zeros((), dtype=torch.int64, device=mix.device)
         if mode == "shuffle" and not elide_probe:
-            ppid = ex.partition_ids(mix0, S)
-            bucketed, pval, p_over = ex.pack_buckets(
-                ppid, psel, S, cap_p, p_arrays)
-            recv = [ex.exchange(a, S) for a in bucketed]
-            p_ok = ex.exchange(pval, S)
+            recv, p_ok, p_over = ex.shuffle(p_arrays, psels, pmixes, cap_p)
         else:  # broadcast rung, or residency-elided re-shuffle: the
             # intermediate stays local (for elision the build side
             # below still exchanges — equal keys already co-reside)
-            recv = p_arrays
-            p_ok = psel
+            recv = [[a[i] for a in p_arrays]
+                    for i in range(len(p_arrays[0]))]
+            p_ok = psels
             p_over = zero
-        rpk, rkv = recv[0], recv[1]
-        n_recv = rpk.shape[0]
 
         # ---- build side ----------------------------------------------
-        b_cols, bm = b_prep(b_datas, b_valids, b_del, b_bounds)
-        bkeys = [b_cols[kp][0].to(torch.int64) for kp in b_key_pos]
-        bmix = ex.combine_keys(bkeys)
-        bk_v = b_cols[b_key_pos[0]][1]
-        for kp in b_key_pos[1:]:
-            bk_v = bk_v & b_cols[kp][1]
-        bsel = bm & bk_v  # NULL build keys never match
-        b_arrays = [bmix]
-        for ci in b_order:
-            d, v = b_cols[ci]
-            b_arrays.append(d)
-            b_arrays.append(v)
+        b_arrays, bsels, bmixes = [], [], []
+        for s in shards:
+            b_cols, bm = b_prep(s, b_datas, b_valids, b_del, b_bounds)
+            bkeys = [b_cols[kp][0].to(torch.int64) for kp in b_key_pos]
+            bmix = ex.combine_keys(bkeys)
+            bk_v = b_cols[b_key_pos[0]][1]
+            for kp in b_key_pos[1:]:
+                bk_v = bk_v & b_cols[kp][1]
+            bsels.append(bm & bk_v)  # NULL build keys never match
+            bmixes.append(bmix)
+            arrs = [bmix]
+            for ci in b_order:
+                d, v = b_cols[ci]
+                arrs.append(d)
+                arrs.append(v)
+            b_arrays.append(arrs)
         if mode == "shuffle":
-            bpid = ex.partition_ids(bmix, S)
-            bucketed, bval, b_over = ex.pack_buckets(
-                bpid, bsel, S, cap_b, b_arrays)
-            recv_b = [ex.exchange(a, S) for a in bucketed]
-            b_ok = ex.exchange(bval, S)
+            recv_b, b_ok, b_over = ex.shuffle(b_arrays, bsels, bmixes,
+                                              cap_b)
         else:
-            recv_b = [ex.replicate(a, S) for a in b_arrays]
-            b_ok = ex.replicate(bsel, S)
+            recv_b = [ex.replicate([a[i] for a in b_arrays])
+                      for i in range(len(b_arrays[0]))]
+            b_ok = ex.replicate(bsels)
             b_over = zero
-        sbk, bord, nb = ex.sorted_build(recv_b[0], b_ok)
-        overflow = p_over + b_over
+        overflow = p_over + b_over.to(p_over.device)
 
-        # ---- fast span-count semi/anti (no expansion) ----------------
-        if fast_filter:
-            lo = torch.searchsorted(sbk, rpk)
-            hi = torch.minimum(torch.searchsorted(sbk, rpk, right=True), nb)
-            matched = (p_ok & rkv) & (hi > lo)
-            keep = p_ok & (matched if kind == "semi" else ~matched)
-            out_slots = recv[2:2 + 2 * n_slots]
-            return torch.stack([overflow, zero]), tuple(out_slots), keep
+        out_slots = [[] for _ in range(2 * n_slots + (
+            0 if kind in ("semi", "anti_semi") else 2 * len(b_order)))]
+        keeps, j_overs = [], []
+        for d in shards:
+            sbk, bord, nb = ex.sorted_build(recv_b[0][d], b_ok[d])
+            rpk, rkv = recv[0][d], recv[1][d]
+            n_recv = rpk.shape[0]
 
-        # ---- two-pass count+emit expansion ---------------------------
-        src, bidx, out_valid, matched, j_over = ex.expand_matches(
-            sbk, bord, nb, rpk, p_ok, rkv & p_ok, cap_out, louter)
-        hit = matched
-        if multi:
-            # mix-hash candidates: re-verify TRUE per-column equality
-            for s, kp in zip(left_slots, b_key_pos):
-                jb = b_order.index(kp)
-                hit = hit & (
-                    recv[2 + 2 * s][src].to(torch.int64)
-                    == recv_b[1 + 2 * jb][bidx].to(torch.int64))
-        if conds_rw:
-            env = {}
-            for s in range(n_slots):
-                env[s] = (recv[2 + 2 * s][src], recv[3 + 2 * s][src])
-            for j, ci in enumerate(b_order):
-                env[n_slots + ci] = (recv_b[1 + 2 * j][bidx],
-                                     hit & recv_b[2 + 2 * j][bidx])
-            for c in conds_rw:
-                d, v = compile_expr(c, env, cap_out)
-                hit = hit & v & (d != 0)
+            # ---- fast span-count semi/anti (no expansion) ------------
+            if fast_filter:
+                lo = torch.searchsorted(sbk, rpk)
+                hi = torch.minimum(torch.searchsorted(sbk, rpk, right=True),
+                                   nb)
+                matched = (p_ok[d] & rkv) & (hi > lo)
+                keeps.append(p_ok[d] & (matched if kind == "semi"
+                                        else ~matched))
+                for i in range(2 * n_slots):
+                    out_slots[i].append(recv[2 + i][d])
+                continue
 
-        if kind in ("semi", "anti_semi"):
-            counts = torch.zeros(n_recv, dtype=torch.int32,
-                                 device=src.device).index_add_(
-                0, src, (hit & out_valid).to(torch.int32))
-            matched_any = counts > 0
-            keep = p_ok & (matched_any if kind == "semi"
-                           else ~matched_any)
-            out_slots = recv[2:2 + 2 * n_slots]
-            return torch.stack([overflow, j_over]), tuple(out_slots), keep
+            # ---- two-pass count+emit expansion -----------------------
+            src, bidx, out_valid, matched, j_over = ex.expand_matches(
+                sbk, bord, nb, rpk, p_ok[d], rkv & p_ok[d], cap_out, louter)
+            j_overs.append(j_over)
+            hit = matched
+            if multi:
+                # mix-hash candidates: re-verify TRUE per-column equality
+                for sl, kp in zip(left_slots, b_key_pos):
+                    jb = b_order.index(kp)
+                    hit = hit & (
+                        recv[2 + 2 * sl][d][src].to(torch.int64)
+                        == recv_b[1 + 2 * jb][d][bidx].to(torch.int64))
+            if conds_rw:
+                env = {}
+                for i in range(n_slots):
+                    env[i] = (recv[2 + 2 * i][d][src],
+                              recv[3 + 2 * i][d][src])
+                for j, ci in enumerate(b_order):
+                    env[n_slots + ci] = (recv_b[1 + 2 * j][d][bidx],
+                                         hit & recv_b[2 + 2 * j][d][bidx])
+                for c in conds_rw:
+                    dd, v = compile_expr(c, env, cap_out)
+                    hit = hit & v & (dd != 0)
 
-        # inner / left_outer emission: gather probe slots, append build
-        out_slots = []
-        for s in range(n_slots):
-            out_slots.append(recv[2 + 2 * s][src])
-            out_slots.append(recv[3 + 2 * s][src])
-        for j in range(len(b_order)):
-            out_slots.append(recv_b[1 + 2 * j][bidx])
-            out_slots.append(hit & recv_b[2 + 2 * j][bidx])
-        keep = out_valid if louter else out_valid & hit
-        return torch.stack([overflow, j_over]), tuple(out_slots), keep
+            if kind in ("semi", "anti_semi"):
+                counts = torch.zeros(n_recv, dtype=torch.int32,
+                                     device=src.device).index_add_(
+                    0, src, (hit & out_valid).to(torch.int32))
+                matched_any = counts > 0
+                keeps.append(p_ok[d] & (matched_any if kind == "semi"
+                                        else ~matched_any))
+                for i in range(2 * n_slots):
+                    out_slots[i].append(recv[2 + i][d])
+                continue
+
+            # inner / left_outer emission: gather probe slots, append
+            # build
+            for i in range(n_slots):
+                out_slots[2 * i].append(recv[2 + 2 * i][d][src])
+                out_slots[2 * i + 1].append(recv[3 + 2 * i][d][src])
+            for j in range(len(b_order)):
+                out_slots[2 * n_slots + 2 * j].append(
+                    recv_b[1 + 2 * j][d][bidx])
+                out_slots[2 * n_slots + 2 * j + 1].append(
+                    hit & recv_b[2 + 2 * j][d][bidx])
+            keeps.append(out_valid if louter else out_valid & hit)
+        j_over = ops.psum(j_overs).to(overflow.device) if j_overs else zero
+        return torch.stack([overflow, j_over]), out_slots, keeps
 
     return prog
 
@@ -384,31 +411,33 @@ def _tree_key_remaps(spec: MPPJoinTreeSpec, states):
 def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
                     group_rw, remaps):
     """The final partial-aggregation program over the finished
-    intermediate: scalar partials, or the grouped sort-group + on-card
-    merge over the slot layout.  fn(*slots, mask[, budget, *maps])
-    returns (flags, payload) as the pair engine's program does."""
+    intermediate (one tensor a shard per slot): scalar partials summed
+    across shards, or the grouped sort-group + on-card merge over the
+    slot layout.  fn(*slots, mask[, budget, *maps]) returns (flags,
+    payload) as the pair engine's program does."""
     n_slots = len(spec.slot_src)
     grouped = group_rw is not None
 
     def prog(*args):
-        slots = []
-        off = 0
-        for _s in range(n_slots):
-            slots.append((args[off], args[off + 1]))
-            off += 2
-        mask = args[off]
-        off += 1
-        env = {i: slots[i] for i in range(n_slots)}
+        mask = args[2 * n_slots]
+        envs = [{i: (args[2 * i][s], args[2 * i + 1][s])
+                 for i in range(n_slots)} for s in range(len(mask))]
+        off = 2 * n_slots + 1
         if grouped:
             gbudget = args[off]
             rvals = args[off + 1:]
-            n_uniq, mn_uniq, m_keys, m_states = grouped_phase(
-                aggs_rw, group_rw, env, mask, n_in, cap_g, remaps, rvals)
-            over_l = torch.clamp(n_uniq - gbudget, min=0)
+            n_uniqs, mn_uniq, m_keys, m_states = grouped_phase(
+                aggs_rw, group_rw, envs, mask, n_in, cap_g, remaps, rvals)
+            over_l = ops.psum([torch.clamp(n - gbudget, min=0)
+                               for n in n_uniqs])
             over_m = torch.clamp(mn_uniq - gbudget, min=0)
-            return (torch.stack([over_l, over_m, mn_uniq]),
+            dev0 = over_l.device
+            return (torch.stack([over_l, over_m.to(dev0),
+                                 mn_uniq.to(dev0)]),
                     (m_keys, m_states))
-        return None, scalar_partial_states(aggs_rw, env, mask, n_in)
+        return None, merge_scalar_states(
+            aggs_rw, [scalar_partial_states(aggs_rw, env, m, n_in)
+                      for env, m in zip(envs, mask)])
 
     return prog
 
@@ -433,9 +462,12 @@ def _decode_slot(spec, states, slot: int, ft, data: np.ndarray,
 
 
 def _assemble_tree_rows(spec, states, mask, flats) -> List[Chunk]:
-    """The output slots of the kept rows, selected on the card."""
-    host = select_rows(mask, [(flats[2 * s], flats[2 * s + 1])
-                              for s in spec.out_slots])
+    """The output slots of the kept rows, selected on each shard's card
+    and read back in shard order."""
+    host = select_rows([
+        (keep, [(flats[2 * i][s], flats[2 * i + 1][s])
+                for i in spec.out_slots])
+        for s, keep in enumerate(mask)])
     cols = []
     for ft, slot, (d, v) in zip(spec.out_ftypes, spec.out_slots, host):
         cols.append(_decode_slot(spec, states, slot, ft, d,
@@ -475,16 +507,17 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
     from ..lifecycle import dispatch_admission, scope_check
     from ..trace import annotate, span
 
-    S = S_LOCAL
-    mesh_ids = ops.device_ids()
-    states = [_SideState(storage, s, spec.ts) for s in spec.sides]
+    mesh = get_mesh()
+    S = mesh.size
+    mesh_ids = mesh.ids
+    states = [_SideState(storage, s, spec.ts, mesh) for s in spec.sides]
     for st in states:
         st.load()
 
     slack = _slack()
     join_slack = _join_slack()
     grouped = spec.aggs is not None and spec.group_by is not None
-    budget, cap_g = _group_budget(spec) if grouped else (0, 0)
+    budget, cap_g = _group_budget(spec, S) if grouped else (0, 0)
     remaps = _tree_key_remaps(spec, states) if grouped else None
 
     # dict-rewrite the per-rung other conds and final agg exprs against
@@ -542,7 +575,7 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
     # key-slot tuples the intermediate is hash-partitioned by (empty
     # until the first shuffle rung: rung 0's input is range-partitioned)
     residency: set = set()
-    base_fp = (f"mpptree|S={S} devs={mesh_ids}"
+    base_fp = (f"mpptree|S={S} devs={mesh_ids}@{mesh.where}"
                f"|base:{_fingerprint(states[0].an, 'filter')}"
                f"|Tl={states[0].Tl}|wire={states[0].wire_sig}")
     for r, rung in enumerate(spec.rungs):
@@ -575,8 +608,9 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
               f"|oc={conds_sig}")
         fn = _COMPILED.get(fp)
         if fn is None:
-            fn = _build_rung_fn(spec, r, states, mode, n_in, cap_p, cap_b,
-                                cap_out, rung_conds[r], elide_probe=elide)
+            fn = _build_rung_fn(spec, r, states, mode, S, n_in, cap_p,
+                                cap_b, cap_out, rung_conds[r],
+                                elide_probe=elide)
             _COMPILED.put(fp, fn)
         FAILPOINTS.hit(TREE_FAILPOINT, rung=r, mode=mode,
                        kind=rung.kind, device_ids=mesh_ids)
@@ -592,6 +626,8 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
             args = tuple(inter) + (mask,)
         args = args + (bs.datas, bs.valids, bs.del_mask, bs.bounds)
         scope_check()
+        # membership guard before every rung's exchange
+        _check_membership_epoch()
         t0 = time.perf_counter()
         with span("mpp.rung", idx=r, rung=mode, kind=rung.kind,
                   elided=int(elide), build_table=bs.side.table_id):
@@ -653,7 +689,7 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         _COMPILED.put(fp, fn)
     args = tuple(inter) + (mask,)
     if grouped:
-        args = args + (budget,) + remap_operands(remaps)
+        args = args + (budget,) + remap_operands(remaps, mesh)
     scope_check()
     with span("mpp.tree.final", grouped=grouped):
         with dispatch_admission(DISPATCH_LOCK):
@@ -684,6 +720,7 @@ def run_mpp_jointree(storage,
     then reaches the statement."""
     import dataclasses
 
+    from ..coord import CoordEpochMismatch
     from ..errors import TiDBTPUError
     from ..lifecycle import current_scope
     from ..trace import annotate, span
@@ -742,6 +779,12 @@ def run_mpp_jointree(storage,
             # evaluate (planner gates are structural, not exhaustive):
             # the host chain owns it
             raise MPPIneligible(str(e))
+        except CoordEpochMismatch:
+            # membership moved between the mesh build and a rung: rebuild
+            # from the new broadcast and re-run the ladder
+            if attempts + 1 >= MAX_MESH_ATTEMPTS:
+                raise
+            attempts += 1
         except (MPPIneligible, KeyboardInterrupt, SystemExit,
                 GeneratorExit, TiDBTPUError):
             raise

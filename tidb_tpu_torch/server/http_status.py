@@ -77,6 +77,22 @@ def _resgroups_section(domain) -> dict:
         return {"error": repr(e)}
 
 
+def _mesh_positions() -> list:
+    """One entry a mesh position: id, device, in the current mesh."""
+    from .. import ops
+    from ..copr import parallel as pl
+    from ..errors import DeviceUnavailableError
+
+    try:
+        positions = ops.mesh_devices()
+    except DeviceUnavailableError:
+        return []
+    mesh = pl._MESH
+    held = set(mesh.ids) if mesh is not None else set()
+    return [{"position": pid, "device": str(d),
+             "in_current_mesh": pid in held} for pid, d in positions]
+
+
 def _dataplane_section(domain) -> dict:
     """Sharded data plane: the host's partition map (epoch,
     owners, members), per-table shard state, and the exchange/re-shard
@@ -368,6 +384,9 @@ class StatusServer:
                         } for st in DEVICE_HEALTH.snapshot()],
                         "tripped":
                             list(DEVICE_HEALTH.tripped_ids()),
+                        # every mesh position, its device and whether
+                        # the live mesh holds it
+                        "positions": _mesh_positions(),
                     }).encode()
                     self._send(200, body, "application/json")
                     return

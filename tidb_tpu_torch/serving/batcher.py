@@ -230,16 +230,27 @@ def _run_batch(ctx: dict, live: List[_Member]):
     whole batch on the card, up to `MAX_MESH_ATTEMPTS` runs; then, and
     for any unclassified error at once, the error reaches every
     member."""
-    from ..copr.parallel import _check_breaker, _handle_mesh_failure
+    from ..coord import CoordEpochMismatch
+    from ..copr.parallel import (MAX_MESH_ATTEMPTS, _check_breaker,
+                                 _handle_mesh_failure, get_mesh)
     from ..copr.torch_eval import DeviceUnsupported
 
     _check_breaker()
     attempts = 0
     while True:
         try:
+            # the mesh (and the membership epoch its dispatches check)
+            # over the positions the breakers admit
+            get_mesh()
             return _run_batch_once(ctx, live)
         except DeviceUnsupported:
             raise  # structural: try_run_batched declines with None
+        except CoordEpochMismatch:
+            # membership moved: rebuild the mesh and re-run the batch,
+            # never a breaker trip
+            if attempts + 1 >= MAX_MESH_ATTEMPTS:
+                raise
+            attempts += 1
         except BaseException as e:
             if not _handle_mesh_failure(None, e, attempts):
                 raise
@@ -255,7 +266,7 @@ def _run_batch_once(ctx: dict, live: List[_Member]):
     from ..copr import torch_engine as te
     from ..copr.chunking import observe_chunk
     from ..copr.device_health import DEVICE_HEALTH
-    from ..copr.parallel import to_device
+    from ..copr.parallel import _check_membership_epoch, to_device
     from ..lifecycle import chunk_admission
     from ..trace import span
 
@@ -302,7 +313,8 @@ def _run_batch_once(ctx: dict, live: List[_Member]):
             for ci in col_order:
                 d, v = te.DEVICE_CACHE.get_tile(
                     table, an.scan.columns[ci], tile_idx, tile_start,
-                    min(tile_start + TILE, table.base_rows), dev)
+                    min(tile_start + TILE, table.base_rows), dev,
+                    card.id)
                 datas.append(d)
                 valids.append(v)
             if dev not in params:
@@ -311,9 +323,10 @@ def _run_batch_once(ctx: dict, live: List[_Member]):
             hi = t1 - tile_start
             del_mask = te._all_true(dev)  # batch eligibility => no deletes
             FAILPOINTS.hit("serving/batch_dispatch", size=B, tile=tile_idx)
-            # the JAX package checks the coordination plane's membership
-            # epoch here; one card has no membership to lose (multi-device
-            # meshes are ROADMAP Queue 1 item 3)
+            # membership guard: a lost member between the mesh build and
+            # this dispatch raises CoordEpochMismatch out of the batch;
+            # `_run_batch` rebuilds the mesh and re-runs the batch
+            _check_membership_epoch()
             #
             # resource-group admission: the leader thread carries its own
             # statement scope, so the batch's device time is charged to
