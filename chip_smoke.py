@@ -78,7 +78,22 @@ port's paths end to end from SQL over a synthetic lineitem:
   rows must be bit-identical across runs and equal math.fsum per group
   after tests/test_tpch.py's `_norm`; then the dense shape with four
   literals in one micro-batch (4 x 100 float segments) against its solo
-  rows after `_norm`.
+  rows after `_norm`;
+- the fleet, processes on the one card, each spawned as `chip_smoke.py
+  --fleet-worker ...` and regenerating its data from the same seeds:
+  `mh`, 2 processes x 2 positions in one torch.distributed group (gloo,
+  as NCCL refuses two ranks on one device): SF10 Q1, Q6 and ck1 hot and
+  cold (K1 and K2 on each process's per-shard inputs, held against
+  their plain versions there), Domain T's t3 and tsj (the exchange's
+  all_to_all between processes) and fl_dense x 5, every process's rows
+  against numpy and the S = 1 rows above, walls and peak device memory
+  a process beside S = 1 and the in-process mesh; `dp`, the
+  coordinator in this process and 2 data-plane members on the card,
+  the SF10 lineitem sharded (RF = 1): rounds of Q1, Q6 and ck1 hot and
+  cold through the data plane (every partition fragment on the card,
+  no bypass, rows against numpy), then SIGKILL of member 1: the epoch
+  bumps, member 0 re-shards from the persisted blocks and answers with
+  parity; the time to recover from the kill.
 
 The fused program's rows per dispatch chunk are fixed at CHUNK_ROWS
 (`TIDB_TPU_DISPATCH_CHUNK_ROWS`): the port's own budget learns rows/ms
@@ -90,7 +105,8 @@ own arrays, and Q1/Q6 at SF1 against the port's host engine.  Each
 cell's kernel launches are counted from zero; every input the path
 hands K1 and K2 is recorded, and each kernel is held against its plain
 version and timed again on those very inputs: the `kernels` line
-reports the input (and for K2 the form) the path launched most.
+reports the input (and for K2 the form) the path launched most, and
+the fleet workers' launches and inputs beside it.
 
 Output: human-readable lines, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as the last line
@@ -1050,7 +1066,9 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
     must plan `op` (MPPJoin or MPPJoinTree) by EXPLAIN, run its first
     run and `reps` steady runs on its rung (`metric` +1 a run), move
     none of MPP_FAILURES, give the same rows every run and rows equal
-    to `want[name]`, and name an `engine:mpp-` rung in EXPLAIN ANALYZE.
+    to `want[name]` (unless `want` is None: a fleet worker's rows are
+    checked by the parent), and name an `engine:mpp-` rung in EXPLAIN
+    ANALYZE.
     K1's and K2's launch counts are set to 0 just before each cell's
     runs and read just after."""
     from tidb_tpu_torch.metrics import REGISTRY
@@ -1085,7 +1103,8 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
             raise AssertionError(f"{label} {name}: {metric} +{moved[0]} "
                                  f"over {1 + reps} runs, "
                                  f"{dict(zip(MPP_FAILURES, moved[1:]))}")
-        if not same_rows(rows, want[name], name in ORDERED):
+        if want is not None and not same_rows(rows, want[name],
+                                              name in ORDERED):
             raise AssertionError(f"{label} {name}: rows != reference:\n"
                                  f"{rows[:10]}\n{want[name][:10]}")
         eng = [r[4] for r in sess.execute("explain analyze " + sql)[0].rows
@@ -1809,25 +1828,15 @@ def norm(rows):
                          for v in r) for r in rows), key=str)
 
 
-def float_phase(profiling: bool) -> dict:
-    """FL_ROWS doubles grouped by FL_GROUPS keys, past the unrolled sums'
-    32 groups: in dense mode (a stored bigint key: the fixed-order
-    segmented sum of ops/segment.py) and in sort mode (a computed key:
-    `fusion.grouped_partial_states`' per-span sums), FL_RUNS runs each.
-    Fails unless every run's rows are bit-identical, and equal
-    math.fsum per group after `_norm`; then FL_BATCH with four
-    literals, concurrently under a batching window (B x G = 400
-    segments in one batched reduction), against its solo rows after
-    `_norm`."""
+def fl_table():
+    """(session, rows after `_norm`, math.fsum per group) of the fl
+    table: FL_ROWS doubles over FL_GROUPS keys from FL_SEED."""
     import math
 
     import numpy as np
 
-    from tidb_tpu_torch import serving
-    from tidb_tpu_torch.metrics import REGISTRY
     from tidb_tpu_torch.session import Domain
 
-    k1, k2 = _kernel_counts()
     rng = np.random.default_rng(FL_SEED)
     keys = rng.integers(0, FL_GROUPS, FL_ROWS, dtype=np.int64)
     x = rng.random(FL_ROWS)
@@ -1848,6 +1857,25 @@ def float_phase(profiling: bool) -> dict:
                  for g in range(FL_GROUPS)])
     log(f"fl: {FL_ROWS} rows, {FL_GROUPS} groups; math.fsum reference "
         f"{time.perf_counter() - t0:.1f} s")
+    return sess, want, fsum
+
+
+def float_phase(profiling: bool) -> dict:
+    """FL_ROWS doubles grouped by FL_GROUPS keys, past the unrolled sums'
+    32 groups: in dense mode (a stored bigint key: the fixed-order
+    segmented sum of ops/segment.py) and in sort mode (a computed key:
+    `fusion.grouped_partial_states`' per-span sums), FL_RUNS runs each.
+    Fails unless every run's rows are bit-identical, and equal
+    math.fsum per group after `_norm`; then FL_BATCH with four
+    literals, concurrently under a batching window (B x G = 400
+    segments in one batched reduction), against its solo rows after
+    `_norm`."""
+    from tidb_tpu_torch import serving
+    from tidb_tpu_torch.metrics import REGISTRY
+
+    k1, k2 = _kernel_counts()
+    sess, want, fsum = fl_table()
+    d = sess.domain
     out = {}
     k1.launches = k2.launches = 0
     for name, sql in (("fl_dense", FL_DENSE), ("fl_sort", FL_SORT)):
@@ -2374,6 +2402,675 @@ def cold_cap(table) -> int:
     return cap
 
 
+# ---------------------------------------------------------------------------
+# the fleet phases: processes on the one card
+# ---------------------------------------------------------------------------
+
+#: mh: MH_PROCS processes join one torch.distributed group (gloo: NCCL
+#: refuses two ranks on one device), each placing MH_LOCAL positions on
+#: the card, so one mesh spans MH_PROCS x MH_LOCAL positions
+MH_PROCS = 2
+MH_LOCAL = 2
+MH_CELLS = (("q1", None), ("q6", None), ("ck1", CK1))
+MH_T = ("t3", "tsj")
+#: dp: the coordinator in this process, DP_MEMBERS member processes on
+#: the card (one position each), RF = 1; DP_ROUNDS rounds hot and cold
+#: before member DP_MEMBERS - 1 is killed
+DP_MEMBERS = 2
+DP_ROUNDS = 3
+DP_LEASE_S = 5.0
+#: a worker's run, its SF10 build included, must end within this
+FLEET_TIMEOUT_S = 900
+FLEET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "fleet")
+
+
+def _sql(name, sql):
+    from tidb_tpu_torch.tpch_data import LINEITEM_Q1, LINEITEM_Q6
+
+    return sql or {"q1": LINEITEM_Q1, "q6": LINEITEM_Q6}[name]
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _spawn(kind: str, pid: int, args, log_path: str):
+    """One fleet worker: this script with --fleet-worker, its output in
+    `log_path`."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--fleet-worker",
+           kind, str(pid)] + [str(a) for a in args]
+    return subprocess.Popen(cmd, stdout=open(log_path, "w"),
+                            stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _echo(label: str, log_path: str):
+    """A worker's log, each line prefixed (the record of its run)."""
+    with open(log_path) as f:
+        for line in f:
+            if "Warning" in line or line.startswith(("  return func",
+                                                     "[W")):
+                continue
+            log(f"{label} | {line.rstrip()}")
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def _wait_all(procs, labels, logs, timeout_s: float):
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise subprocess.TimeoutExpired(p.args, timeout_s)
+            p.wait(timeout=left)
+    except subprocess.TimeoutExpired:
+        _stop(procs)
+        for lb, lp in zip(labels, logs):
+            _echo(lb, lp)
+        raise AssertionError(f"fleet workers did not end in {timeout_s} s")
+    for lb, lp in zip(labels, logs):
+        _echo(lb, lp)
+    bad = [(lb, p.returncode) for lb, p in zip(labels, procs)
+           if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"fleet workers failed: {bad}")
+
+
+def _peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / (1 << 30)
+
+
+def _cell_record(r: dict) -> dict:
+    return {k: r[k] for k in ("rows", "first_s", "steady_s", "launches")
+            if k in r}
+
+
+def _fleet_device(layout: str, pid: int, nprocs: int):
+    """A fleet process's positions: MH_LOCAL of them on the one card
+    ("share"), or card `pid` alone ("cards": one process a card)."""
+    import torch
+
+    from tidb_tpu_torch import ops
+
+    if layout == "share":
+        ops.use_device("cuda", shards=MH_LOCAL)
+    else:
+        ops.use_device(f"cuda:{pid}")
+        torch.cuda.set_device(pid)
+    # the processes share the host's cores: no oversubscribed torch pool
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // nprocs))
+
+
+def mh_worker(pid: int, nprocs: int, layout: str, port: str,
+              out_path: str) -> int:
+    """One process of the `mh` phase: joins the group, builds the SF10
+    lineitem from SEED (every process regenerates the same arrays), runs
+    Q1, Q6 and ck1 hot and cold, holds K1 and K2 against their plain
+    versions on its own per-shard inputs (one process at a time), then
+    Domain T's t3 and tsj and fl_dense (FL_RUNS runs); writes its rows,
+    walls, launches and peak device memory to `out_path` (pickle)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ.update({
+        "TIDB_TPU_COORDINATOR": f"127.0.0.1:{port}",
+        "TIDB_TPU_NUM_PROCESSES": str(nprocs),
+        "TIDB_TPU_PROCESS_ID": str(pid),
+        "TIDB_TPU_DIST_TIMEOUT_S": str(FLEET_TIMEOUT_S),
+        "TIDB_TPU_DISPATCH_CHUNK_ROWS": str(CHUNK_ROWS)})
+    from tidb_tpu_torch import ops
+    from tidb_tpu_torch.copr import parallel
+    from tidb_tpu_torch.layout import hot_cap_bytes, set_hot_cap_bytes
+    from tidb_tpu_torch.tpch_data import (TPCH_QUERIES, build_lineitem,
+                                          build_tpch_domain)
+
+    _fleet_device(layout, pid, nprocs)
+    parallel._maybe_init_multihost()
+    backend = dist.get_backend()
+    tag = f"mh[{pid}]"
+    log(f"{tag}: joined {ops.process_count()} processes, backend "
+        f"{backend}, positions {list(ops.device_ids())}")
+    out = {"pid": pid, "backend": backend, "peak_gib": {}}
+    t0 = time.perf_counter()
+    sess = build_lineitem(SF10_ROWS, seed=SEED)
+    out["load_s"] = time.perf_counter() - t0
+    log(f"{tag}: SF10 load {out['load_s']:.1f} s (regenerated from seed "
+        f"{SEED})")
+    ops.agree(0)  # both loaded
+    d = sess.domain
+    table = d.storage.table(d.catalog.info_schema().table(
+        "test", "lineitem").id)
+    cells = [(n, _sql(n, q)) for n, q in MH_CELLS]
+    torch.cuda.reset_peak_memory_stats()
+    seen_k1, restore_k1 = record_remap_inputs()
+    try:
+        hot = run_queries(sess, f"{tag} hot", SF10_ROWS, cells)
+    finally:
+        restore_k1()
+    out["peak_gib"]["hot"] = _peak_gib()
+    out["mesh"] = list(mesh_ids())
+    out["local"] = list(parallel._MESH.local)
+    default_cap = hot_cap_bytes()
+    reset_device_state()
+    set_hot_cap_bytes(cold_cap(table))
+    torch.cuda.reset_peak_memory_stats()
+    seen_k2, restore = record_unpack_inputs()
+    seen_k1c, restore_k1 = record_remap_inputs()
+    try:
+        cold = run_queries(sess, f"{tag} cold", SF10_ROWS, cells)
+    finally:
+        restore()
+        restore_k1()
+    out["peak_gib"]["cold"] = _peak_gib()
+    for key, rec in seen_k1c.items():
+        if key in seen_k1:
+            seen_k1[key][0] += rec[0]
+        else:
+            seen_k1[key] = rec
+    for p in range(nprocs):  # one process times at a time
+        ops.agree(0)
+        if p == pid:
+            out["k2_inputs"] = path_kernel_phase(seen_k2)
+            out["k1_inputs"] = path_k1_phase(seen_k1)
+    ops.agree(0)
+    del seen_k1, seen_k2, seen_k1c
+    out["hot"] = {k: _cell_record(v) for k, v in hot.items()}
+    out["cold"] = {k: _cell_record(v) for k, v in cold.items()}
+    set_hot_cap_bytes(default_cap)
+    del sess, d, table
+    gc.collect()
+    reset_device_state()
+
+    t0 = time.perf_counter()
+    sess = build_tpch_domain(scale=T_SCALE, seed=T_SEED, regions=8)
+    log(f"{tag}: domain T built in {time.perf_counter() - t0:.1f} s")
+    sess.execute("set tidb_allow_mpp = 1")
+    sql = {"t3": TPCH_QUERIES["q3"], "tsj": SJ}
+    torch.cuda.reset_peak_memory_stats()
+    t = mpp_cells(sess, f"{tag} T", int(8000 * T_SCALE),
+                  [(n, sql[n], "MPPJoinTree", "mpp_tree_joins_total")
+                   for n in MH_T], None, reps=2)
+    out["peak_gib"]["T"] = _peak_gib()
+    out["t"] = {k: _cell_record(v) for k, v in t.items()}
+    del sess
+    gc.collect()
+    reset_device_state()
+
+    sess, fl_want, _fsum = fl_table()
+    runs, times = [], []
+    for _ in range(FL_RUNS):
+        t0 = time.perf_counter()
+        runs.append(sess.query(FL_DENSE))
+        times.append(time.perf_counter() - t0)
+    if len({repr(sorted(r, key=str)) for r in runs}) != 1:
+        raise AssertionError(f"{tag} fl_dense: runs differ")
+    if norm(runs[0]) != fl_want:
+        raise AssertionError(f"{tag} fl_dense: != math.fsum after _norm")
+    eng = engines(sess, FL_DENSE)
+    if not eng or not all("engine:mesh" in e for e in eng):
+        raise AssertionError(f"{tag} fl_dense: route {eng}")
+    out["fl"] = {"rows": runs[0], "first_s": times[0],
+                 "steady_s": statistics.median(times[1:])}
+    log(f"{tag} fl_dense: {FL_RUNS} runs bit-identical; steady "
+        f"{out['fl']['steady_s'] * 1e3:.1f} ms")
+    del sess
+    gc.collect()
+    reset_device_state()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    ops.agree(0)
+    dist.destroy_process_group()
+    return 0
+
+
+def mh_phase(want: dict, s1: dict, nprocs: int = MH_PROCS,
+             layout: str = "share") -> dict:
+    """The `mh` phase: `nprocs` processes on the one card, one mesh of
+    nprocs x MH_LOCAL positions over gloo ("share"), or one process a
+    card over nccl ("cards", tools/fleet_cards.py).  Every process's rows must be equal,
+    equal numpy (q1, q6, ck1, t3 against q3, tsj against sj) and, where
+    `s1` has them, the same cells' S = 1 rows; fl_dense equal
+    math.fsum after `_norm`.  K1 and K2 must have launched in each
+    process and matched their plain versions on its inputs.  Prints
+    each process's steady walls and peak device memory beside S = 1 and
+    the in-process mesh."""
+    import pickle
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    port = _free_port()
+    logs = [os.path.join(FLEET_DIR, f"mh{p}.log") for p in range(nprocs)]
+    outs = [os.path.join(FLEET_DIR, f"mh{p}.pkl") for p in range(nprocs)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for p in range(nprocs):
+            procs.append(_spawn("mh", p, [nprocs, layout, port, outs[p]],
+                                logs[p]))
+        # Domain T's numpy references while the workers run
+        tw = tpch_reference()
+        _wait_all(procs, [f"mh[{p}]" for p in range(nprocs)], logs,
+                  FLEET_TIMEOUT_S)
+    finally:
+        _stop(procs)
+    wall = time.perf_counter() - t0
+    res = []
+    for path in outs:
+        with open(path, "rb") as f:
+            res.append(pickle.load(f))
+    per = MH_LOCAL if layout == "share" else 1
+    backend = "gloo" if layout == "share" else "nccl"
+    n_pos = nprocs * per
+    refs = {"q1": want["q1"], "q6": want["q6"], "ck1": want["ck1"],
+            "t3": tw["q3"], "tsj": tw["sj"]}
+    cells = {}
+    for r in res:
+        p = r["pid"]
+        if r["backend"] != backend or r["mesh"] != list(range(n_pos)) \
+                or r["local"] != list(range(p * per, (p + 1) * per)):
+            raise AssertionError(f"mh[{p}]: backend {r['backend']}, mesh "
+                                 f"{r['mesh']}, local {r['local']}")
+        for tier in ("hot", "cold", "t"):
+            for name, c in r[tier].items():
+                if not same_rows(c["rows"], refs[name], name in ORDERED):
+                    raise AssertionError(f"mh[{p}] {tier} {name}: rows != "
+                                         f"numpy reference")
+                key = f"{tier} {name}" if tier != "t" else f"T {name}"
+                base = s1.get(key)
+                if base is not None and not same_rows(
+                        norm(c["rows"]), norm(base["rows"]),
+                        name in ORDERED):
+                    raise AssertionError(f"mh[{p}] {key}: rows != S = 1")
+                cells.setdefault(key, []).append(c)
+        for name, c in r["cold"].items():
+            if c["launches"]["unpack_codes"] <= 0:
+                raise AssertionError(f"mh[{p}] cold {name}: no K2 launch")
+        for tier in ("hot", "cold"):
+            if r[tier]["ck1"]["launches"]["remap_codes"] <= 0:
+                raise AssertionError(f"mh[{p}] {tier} ck1: no K1 launch")
+        bad = [k for k in r["k1_inputs"] + r["k2_inputs"]
+               if k["max_abs_err"]]
+        if bad or not r["k1_inputs"] or not r["k2_inputs"]:
+            raise AssertionError(f"mh[{p}]: kernel inputs {bad}")
+        fl_s1 = s1.get("fl_dense")
+        if fl_s1 is not None and norm(r["fl"]["rows"]) != norm(
+                fl_s1["rows"]):
+            raise AssertionError(f"mh[{p}] fl_dense: != S = 1 after "
+                                 "_norm")
+    if {repr(sorted(r["fl"]["rows"], key=str)) for r in res} != \
+            {repr(sorted(res[0]["fl"]["rows"], key=str))}:
+        raise AssertionError("mh fl_dense: processes' bits differ")
+    for key, cs in cells.items():
+        if any(not same_rows(c["rows"], cs[0]["rows"], True) for c in cs):
+            raise AssertionError(f"mh {key}: processes' rows differ")
+        walls = ", ".join(f"{c['steady_s'] * 1e3:.1f}" for c in cs)
+        base = s1.get(key)
+        mesh = s1.get(f"S={MESH_S} {key}")
+        log(f"mh {key}: rows equal in {len(cs)} processes and numpy; "
+            f"steady {walls} ms a process"
+            + (f" vs S = 1 {base['steady_s'] * 1e3:.1f} ms" if base
+               else "")
+            + (f", in-process S = {MESH_S} {mesh['steady_s'] * 1e3:.1f} ms"
+               if mesh else ""))
+    fl_s1 = s1.get("fl_dense")
+    log("mh fl_dense: bit-identical in every process and run, == "
+        "math.fsum after _norm; steady "
+        + ", ".join(f"{r['fl']['steady_s'] * 1e3:.1f}" for r in res)
+        + " ms a process"
+        + (f" vs S = 1 {fl_s1['steady_s'] * 1e3:.1f} ms" if fl_s1 else ""))
+    for r in res:
+        log(f"mh[{r['pid']}]: peak device memory "
+            + ", ".join(f"{k} {v:.2f} GiB" for k, v in r["peak_gib"].items())
+            + f"; SF10 load {r['load_s']:.1f} s")
+    log(f"mh: {nprocs} processes x {per} positions, backend {backend}, "
+        f"{wall:.1f} s")
+    launches = {"remap_codes": 0, "unpack_codes": 0}
+    for r in res:
+        for tier in ("hot", "cold", "t"):
+            for c in r[tier].values():
+                for k in launches:
+                    launches[k] += c["launches"][k]
+    return {"mh": {"launches": launches, "wall_s": wall,
+                   "k1_inputs": [k for r in res for k in r["k1_inputs"]],
+                   "k2_inputs": [k for r in res for k in r["k2_inputs"]]}}
+
+
+DP_QUERIES = (("q1", None), ("q6", None), ("ck1", CK1))
+_DP_COUNTERS = ("dataplane_queries_total", "dataplane_card_fragments_total",
+                "cop_region_cpu_runs_total", "dataplane_bypass_total",
+                "dataplane_failover_bypass_total",
+                "dataplane_cold_reloads_total",
+                "dataplane_replica_promotions_total")
+
+
+def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
+              dp_dir: str, out_path: str) -> int:
+    """One member of the `dp` phase: builds the SF10 lineitem from SEED,
+    joins the coordinator, shards the table (replication factor `rf`,
+    every partition persisted to `dp_dir`), waits for every member of
+    `members`, then runs DP_ROUNDS
+    rounds of Q1, Q6 and ck1 hot and DP_ROUNDS cold (the partitions'
+    packable columns bit-packed), holds K1 and K2 against their plain
+    versions on its inputs, writes its report to `out_path` and goes on
+    with hot rounds until SIGTERM.  Each round prints its counters and
+    its end on the host clock."""
+    import pickle
+    import signal
+
+    os.environ.update({
+        "TIDB_TPU_DATAPLANE_RF": str(rf), "TIDB_TPU_DATAPLANE_DIR": dp_dir,
+        "TIDB_TPU_DISPATCH_CHUNK_ROWS": str(CHUNK_ROWS)})
+    from tidb_tpu_torch import ops
+    from tidb_tpu_torch.coord import activate_worker
+    from tidb_tpu_torch.dataplane import activate_dataplane
+    from tidb_tpu_torch.layout import hot_cap_bytes, set_hot_cap_bytes
+    from tidb_tpu_torch.metrics import REGISTRY
+    from tidb_tpu_torch.tpch_data import build_lineitem
+
+    tag = f"dp[{pid}]"
+    if layout == "share":
+        ops.use_device("cuda")
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // members))
+    else:
+        _fleet_device(layout, pid, members)
+    t0 = time.perf_counter()
+    sess = build_lineitem(SF10_ROWS, seed=SEED)
+    log(f"{tag}: SF10 load {time.perf_counter() - t0:.1f} s")
+    dom = sess.domain
+    tid = dom.catalog.info_schema().table("test", "lineitem").id
+    plane = activate_worker(("127.0.0.1", int(port)), pid=pid,
+                            devices=list(ops.device_ids()),
+                            lease_s=DP_LEASE_S)
+    dp = activate_dataplane(dom.storage, plane=plane, pid=pid)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        v = plane.view()
+        if v.formed and len(v.members) >= members \
+                and len(v.addrs) >= members:
+            break
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    st = dp.shard_table(tid)
+    log(f"{tag}: SHARDED loaded {len(st.loaded)}/{st.n_parts} partitions "
+        f"in {time.perf_counter() - t0:.1f} s")
+    plane.shared_put(f"dp_sharded_{pid}", 1)
+    while time.monotonic() < deadline and not all(
+            plane.shared_get(f"dp_sharded_{p}")[0]
+            for p in range(members)):
+        time.sleep(0.05)
+    sess.execute("set tidb_use_tpu = 1")
+    queries = [(n, _sql(n, q)) for n, q in DP_QUERIES]
+    k1, k2 = _kernel_counts()
+
+    def cnt():
+        snap = REGISTRY.snapshot()
+        return [snap.get(n, 0) for n in _DP_COUNTERS]
+
+    def one_round(ref):
+        c0 = cnt()
+        t0 = time.perf_counter()
+        rows = {name: sess.query(sql) for name, sql in queries}
+        wall = time.perf_counter() - t0
+        moved = dict(zip(("dp", "card", "cpu", "bypass", "fbypass",
+                          "cold", "promote"),
+                         (b - a for a, b in zip(c0, cnt()))))
+        ok = ref is None or all(same_rows(rows[n], ref[n], n in ORDERED)
+                                for n in rows)
+        log(f"ROUND pid={pid} epoch={plane.current_epoch()} ok={int(ok)} "
+            f"dp={int(moved['dp'])} card={int(moved['card'])} "
+            f"cpu={int(moved['cpu'])} "
+            f"bypass={int(moved['bypass'] + moved['fbypass'])} "
+            f"cold={int(moved['cold'])} promote={int(moved['promote'])} "
+            f"wall_ms={wall * 1e3:.1f} "
+            f"t_end={time.time():.3f}")
+        return rows, moved, wall, ok
+
+    default_cap = hot_cap_bytes()
+    seen_k1, restore_k1 = record_remap_inputs()
+    seen_k2, restore = record_unpack_inputs()
+    report = {"pid": pid, "rounds": {}}
+    try:
+        for tier in ("hot", "cold"):
+            if tier == "cold":
+                part = dom.storage.table(next(iter(st.loaded.values())))
+                set_hot_cap_bytes(cold_cap(part))
+                reset_device_state()
+            k1.launches = k2.launches = 0
+            ref = None
+            walls, moves = [], []
+            for _ in range(DP_ROUNDS):
+                rows, moved, wall, ok = one_round(ref)
+                ref = ref or rows
+                walls.append(wall)
+                moves.append(moved)
+                if not ok:
+                    raise AssertionError(f"{tag} {tier}: rows changed")
+            eng = {n: engines(sess, q) for n, q in queries}
+            report["rounds"][tier] = {
+                "rows": ref, "walls": walls, "moved": moves, "engines": eng,
+                "launches": {"remap_codes": k1.launches,
+                             "unpack_codes": k2.launches}}
+        report["k2_inputs"] = path_kernel_phase(seen_k2)
+        report["k1_inputs"] = path_k1_phase(seen_k1)
+    finally:
+        restore()
+        restore_k1()
+    del seen_k1, seen_k2
+    set_hot_cap_bytes(default_cap)
+    reset_device_state()
+    ref = report["rounds"]["hot"]["rows"]
+    with open(out_path, "wb") as f:
+        pickle.dump(report, f)
+    log(f"REPORTED pid={pid}")
+    stop = [False]
+    signal.signal(signal.SIGTERM, lambda *_a: stop.__setitem__(0, True))
+    end = time.monotonic() + FLEET_TIMEOUT_S
+    while not stop[0] and time.monotonic() < end:
+        one_round(ref)
+    plane.leave()
+    plane.stop()
+    log(f"DRAINED pid={pid}")
+    return 0
+
+
+def _round_fields(line: str) -> dict:
+    return {k: float(v) for k, v in re.findall(r"(\w+)=([-\d.]+)", line)}
+
+
+def dp_phase(want: dict, members: int = DP_MEMBERS, rf: int = 1,
+             layout: str = "share") -> dict:
+    """The `dp` phase: the coordinator here, `members` members on the
+    card ("share"; one a card: "cards"), the SF10 lineitem sharded with
+    replication factor `rf`.  Every hot and cold
+    round of every member must be served by the data plane (every
+    statement counted on `dataplane_queries_total`, every partition
+    fragment on the card, no host-engine run, no bypass) with rows equal
+    to numpy, and K1 and K2 must have launched and matched their plain
+    versions on the members' inputs.  Then the last member is
+    killed (SIGKILL): the epoch must bump, the survivors take over its
+    partitions (RF = 1: replayed from the persisted blocks,
+    `dataplane_cold_reloads_total` moves; RF = 2: promoted replicas,
+    `dataplane_replica_promotions_total` moves and no cold reload) and
+    every survivor answer with parity through the data plane.  The time
+    to recover runs from the kill to the end of member 0's first such
+    round."""
+    import pickle
+    import shutil
+
+    from tidb_tpu_torch.coord.plane import Coordinator
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    dp_dir = os.path.join(FLEET_DIR, "dp")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    coord = Coordinator(lease_s=DP_LEASE_S, expect=members)
+    coord.start()
+    logs = [os.path.join(FLEET_DIR, f"dp{p}.log") for p in range(members)]
+    outs = [os.path.join(FLEET_DIR, f"dp{p}.pkl") for p in range(members)]
+    labels = [f"dp[{p}]" for p in range(members)]
+    for path in outs:
+        if os.path.exists(path):
+            os.remove(path)
+    procs = []
+    t_start = time.perf_counter()
+
+    def lines(p):
+        with open(logs[p]) as f:
+            return [ln.strip() for ln in f]
+
+    def wait_for(pred, timeout_s, watch=None):
+        """pred() within timeout_s; False at once when a watched
+        process (default: every member) has exited."""
+        end = time.monotonic() + timeout_s
+        while time.monotonic() < end:
+            if pred():
+                return True
+            if any(p.poll() is not None for p in watch or procs):
+                return pred()
+            time.sleep(0.1)
+        return pred()
+
+    try:
+        for p in range(members):
+            procs.append(_spawn("dp", p, [members, layout, rf, coord.port,
+                                          dp_dir, outs[p]], logs[p]))
+        if not wait_for(lambda: all(os.path.exists(o) for o in outs),
+                        FLEET_TIMEOUT_S):
+            raise AssertionError("dp: members did not report")
+        reports = []
+        for path in outs:
+            with open(path, "rb") as f:
+                reports.append(pickle.load(f))
+        victim = members - 1
+        e0 = coord.view().epoch
+        t_kill = time.time()
+        procs[victim].kill()
+        t0 = time.perf_counter()
+        if not wait_for(lambda: victim not in coord.view().members,
+                        4 * DP_LEASE_S + 10, watch=procs[:victim]):
+            raise AssertionError("dp: the killed member was not expired")
+        expired_s = time.perf_counter() - t0
+        e1 = coord.view().epoch
+
+        def recovered(p):
+            """Member p's first round at the new epoch served whole by
+            the data plane with parity."""
+            for ln in lines(p):
+                if not ln.startswith("ROUND"):
+                    continue
+                f = _round_fields(ln)
+                if f["epoch"] >= e1 and f["ok"] == 1 \
+                        and f["dp"] == len(DP_QUERIES) and f["cpu"] == 0 \
+                        and f["bypass"] == 0:
+                    return f
+            return None
+
+        if not wait_for(lambda: all(recovered(p) is not None
+                                    for p in range(victim)), 300,
+                        watch=procs[:victim]):
+            raise AssertionError("dp: the survivors did not answer through "
+                                 "the data plane at the new epoch")
+        rec = recovered(0)
+        recover_s = rec["t_end"] - t_kill
+        for p in procs[:victim]:
+            p.send_signal(15)
+        for p in procs[:victim]:
+            p.wait(timeout=120)
+    finally:
+        _stop(procs)
+        coord.stop()
+        for lb, lp in zip(labels, logs):
+            _echo(lb, lp)
+    # every survivor's rounds at the new epoch: the takeover happens on
+    # whichever survivor held the lost member's replicas
+    post = [f for p in range(victim) for ln in lines(p)
+            if ln.startswith("ROUND")
+            for f in [_round_fields(ln)] if f["epoch"] >= e1]
+    bad = [ln for p in range(members) for ln in lines(p)
+           if ln.startswith("ROUND") and "ok=0" in ln]
+    if bad:
+        raise AssertionError(f"dp: rounds without parity: {bad[:3]}")
+    cold_n = sum(f["cold"] for f in post)
+    promoted = sum(f["promote"] for f in post)
+    if e1 <= e0 or not post or (cold_n <= 0 if rf == 1
+                                else promoted <= 0 or cold_n):
+        raise AssertionError(f"dp: epoch {e0} -> {e1}; RF {rf} takeover "
+                             f"cold {cold_n}, promoted {promoted}: "
+                             f"{post[:3]}")
+    refs = {"q1": want["q1"], "q6": want["q6"], "ck1": want["ck1"]}
+    launches = {"remap_codes": 0, "unpack_codes": 0}
+    for r in reports:
+        p = r["pid"]
+        for tier, rd in r["rounds"].items():
+            for name, rows in rd["rows"].items():
+                if not same_rows(rows, refs[name], name in ORDERED):
+                    raise AssertionError(f"dp[{p}] {tier} {name}: rows != "
+                                         "numpy reference")
+            for m in rd["moved"]:
+                if m["dp"] != len(DP_QUERIES) or m["card"] <= 0 \
+                        or m["cpu"] or m["bypass"] or m["fbypass"]:
+                    raise AssertionError(f"dp[{p}] {tier}: round {m}")
+            for name, eng in rd["engines"].items():
+                if not eng or not all("engine:dataplane" in e for e in eng):
+                    raise AssertionError(f"dp[{p}] {tier} {name}: route "
+                                         f"{eng}")
+            for k in launches:
+                launches[k] += rd["launches"][k]
+            log(f"dp[{p}] {tier}: {DP_ROUNDS} rounds of "
+                f"{len(DP_QUERIES)} statements through the data plane, "
+                f"rows == numpy; round walls "
+                + ", ".join(f"{w * 1e3:.1f}" for w in rd["walls"])
+                + f" ms; fragments on the card "
+                f"{[int(m['card']) for m in rd['moved']]}; launches "
+                f"{rd['launches']}")
+        if r["rounds"]["cold"]["launches"]["unpack_codes"] <= 0 or \
+                r["rounds"]["hot"]["launches"]["remap_codes"] <= 0:
+            raise AssertionError(f"dp[{p}]: launches {r['rounds']}")
+        bad = [k for k in r["k1_inputs"] + r["k2_inputs"]
+               if k["max_abs_err"]]
+        if bad:
+            raise AssertionError(f"dp[{p}]: kernel inputs {bad}")
+    wall = time.perf_counter() - t_start
+    log(f"dp: {members} members, RF {rf}; member {victim} killed at "
+        f"epoch {e0}; expired after {expired_s:.2f} s (lease {DP_LEASE_S} "
+        f"s), epoch {e1}; the survivors took over (cold reloads "
+        f"{int(cold_n)}, replica promotions {int(promoted)}) and answered "
+        f"through the data plane with parity; time to recover (member 0) "
+        f"{recover_s:.2f} s; "
+        f"first recovered round {rec['wall_ms']:.1f} ms; phase {wall:.1f} s")
+    return {"dp": {"launches": launches, "recover_s": recover_s,
+                   "wall_s": wall,
+                   "k1_inputs": [k for r in reports for k in r["k1_inputs"]],
+                   "k2_inputs": [k for r in reports for k in r["k2_inputs"]]}}
+
+
+def fleet_worker(argv) -> int:
+    kind, pid = argv[0], int(argv[1])
+    if kind == "mh":
+        return mh_worker(pid, int(argv[2]), argv[3], argv[4], argv[5])
+    if kind == "dp":
+        return dp_member(pid, int(argv[2]), argv[3], int(argv[4]), argv[5],
+                         argv[6], argv[7])
+    raise SystemExit(f"unknown fleet worker {kind}")
+
+
 def kernel_entry(name: str, launches: int, on_path: list,
                  pick_from: list) -> dict:
     """One kernel's entry of the `kernels` line: the numbers measured on
@@ -2406,6 +3103,8 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import tidb_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if argv[:1] == ["--fleet-worker"]:
+        return fleet_worker(argv[1:])
     from tidb_tpu_torch import ops
     from tidb_tpu_torch.copr.cuda import build_all, ptxas_report
     from tidb_tpu_torch.layout import (autotuner, hot_cap_bytes,
@@ -2550,6 +3249,18 @@ def main(argv) -> int:
         else:
             seen[key] = rec
     fl = float_phase(profiling)
+    # the fleet phases: processes on the one card (mh), the sharded data
+    # plane (dp); the same cells' rows and walls in this process beside
+    s1 = {f"{tier} {k}": v for tier, res in (("hot", hot), ("cold", cold))
+          for k, v in res.items()}
+    s1.update({f"S={MESH_S} {k[len(f'S={MESH_S} '):]}": v
+               for k, v in mesh.items() if k.startswith(f"S={MESH_S} ")})
+    for n in MH_T:
+        s1[f"T {n}"] = joins[f"T {n}"]
+        s1[f"S={MESH_S} T {n}"] = joins[f"T S={MESH_S} {n}"]
+    s1["fl_dense"] = fl["fl"]["cells"]["fl_dense"]
+    fleet = mh_phase(want, s1)
+    fleet.update(dp_phase(want))
     # the S = 1 cells' calls a K2 input (bits, n): they pick the
     # headline input of the kernels line, as before the mesh cells
     s1_k2 = {}
@@ -2576,7 +3287,8 @@ def main(argv) -> int:
 
     cells = (list(hot.values()) + list(cold.values()) + list(q18.values())
              + list(ma10.values()) + list(mesh.values())
-             + list(joins.values()) + list(fl.values()))
+             + list(joins.values()) + list(fl.values())
+             + list(fleet.values()))
     k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
     k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
     # the launches of the mesh cells alone (S = MESH_S, and mA10 at
@@ -2618,6 +3330,18 @@ def main(argv) -> int:
             "bound_ms", "max_abs_err") if x in r} for r in rows]
         if not rows or any(r["max_abs_err"] for r in rows):
             raise AssertionError(f"{entry['name']}: mesh inputs {rows}")
+    # the fleet workers' launches (counted in each worker over its
+    # cells) and their inputs, each held against the plain version there
+    for entry, key, inputs in ((k1, "remap_codes", "k1_inputs"),
+                               (k2, "unpack_codes", "k2_inputs")):
+        entry["fleet_launches"] = {
+            ph: r["launches"][key] for ph, r in fleet.items()}
+        entry["fleet_inputs"] = [{x: r.get(x) for x in (
+            "n", "bits", "code", "map", "cap", "calls", "max_abs_err")
+            if x in r} for ph in fleet for r in fleet[ph][inputs]]
+        if any(not v for v in entry["fleet_launches"].values()):
+            raise AssertionError(f"{entry['name']}: fleet launches "
+                                 f"{entry['fleet_launches']}")
     kernels = {"kernels": [k1, k2]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

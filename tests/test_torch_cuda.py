@@ -174,3 +174,68 @@ def test_two_shard_mesh_on_card_equals_one_shard(card):
     finally:
         ops.use_device("cuda")
     assert one and two == one
+
+
+_TWO_PROCS = r"""
+import os, sys
+import torch
+pid, port = int(sys.argv[1]), sys.argv[2]
+os.environ.update(TIDB_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                  TIDB_TPU_NUM_PROCESSES="2", TIDB_TPU_PROCESS_ID=str(pid),
+                  TIDB_TPU_DIST_TIMEOUT_S="60")
+from tidb_tpu_torch import ops
+from tidb_tpu_torch.copr import parallel as pl
+from tidb_tpu_torch.mpp import exchange as ex
+ops.use_device("cuda", shards=2)
+pl._maybe_init_multihost()
+import torch.distributed as dist
+assert dist.get_backend() == "gloo", dist.get_backend()
+S, cap, dev = 4, 5, torch.device("cuda", 0)
+mine = (2 * pid, 2 * pid + 1)
+parts = [torch.arange(300, dtype=torch.float64, device=dev) * (s + 1) / 7
+         for s in range(S)]
+want = parts[0]
+for p in parts[1:]:
+    want = want + p
+got = ops.psum(ops.gather_shards(
+    [parts[s] if s in mine else None for s in range(S)]))
+assert torch.equal(got, want)
+packs = [torch.arange(S * cap, device=dev).reshape(S, cap) + 100 * s
+         for s in range(S)]
+full = ex.exchange(packs)
+owners = (0, 0, 1, 1)
+out = ex.exchange([packs[s] if s in mine else None for s in range(S)],
+                  owners)
+for s in range(S):
+    assert (out[s] is None) == (s not in mine)
+    if s in mine:
+        assert torch.equal(out[s], full[s])
+dist.destroy_process_group()
+print("TWO_PROCS_OK", pid)
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_share_the_card_over_gloo(card):
+    """Two processes on the one card (gloo: NCCL refuses two ranks on
+    one device), two positions each: `ops.psum` and the exchange's
+    all_to_all equal their single-process results bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_PROCS, str(p),
+                               str(port)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p in (0, 1)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "TWO_PROCS_OK" in out, out[-3000:]

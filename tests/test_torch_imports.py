@@ -4,9 +4,10 @@ In a fresh interpreter (this one has imported jax already, through
 conftest), importing `tidb_tpu_torch`, its MPP engine
 (`tidb_tpu_torch.mpp`, with the join-tree engine), its serving path
 (`tidb_tpu_torch.server`, `.serving.batcher`, `tidb_tpu_torch.__main__`),
-creating a Domain and running Q6 must leave neither `jax` nor any
+its coordination and data planes (`.coord`, `.dataplane`), creating a Domain and running Q6 must leave neither `jax` nor any
 `tidb_tpu.` module loaded; and a scan of every source file under
-`tidb_tpu_torch/` finds no import of either and no Pallas.
+`tidb_tpu_torch/` and of the port's multi-process workers finds no
+import of either and no Pallas.
 """
 
 import ast
@@ -31,6 +32,8 @@ import tidb_tpu_torch.server
 import tidb_tpu_torch.server.server
 import tidb_tpu_torch.serving.batcher
 import tidb_tpu_torch.__main__
+import tidb_tpu_torch.coord
+import tidb_tpu_torch.dataplane
 from tidb_tpu_torch import ops
 ops.use_device("cpu")
 from tidb_tpu_torch.tpch_data import LINEITEM_Q6, build_lineitem
@@ -67,9 +70,16 @@ def _imports(path: Path):
             yield node.module
 
 
+#: the port's multi-process workers and chip scripts stand alone as well
+WORKERS = ("tests/torch_multihost_worker.py",
+           "tests/torch_dataplane_worker.py", "tools/fleet_cards.py",
+           "chip_smoke.py")
+
+
 def test_sources_import_no_jax_package_and_no_pallas():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 50
+    files += [ROOT / w for w in WORKERS]
     offenders = []
     for f in files:
         for mod in _imports(f):

@@ -663,9 +663,17 @@ def test_member_lost_rebuilds_with_parity(env, sql):
     assert FAILPOINTS.armed() == []
 
 
-def test_coordinator_env_refuses_to_run_single_host(monkeypatch):
+def test_coordinator_env_refuses_to_run_single_host(env, monkeypatch):
+    """With TIDB_TPU_COORDINATOR set the mesh joins a process group; a
+    coordinator nobody answers fails the statement with the typed
+    CollectiveError instead of running this process alone."""
     from tidb_tpu_torch.copr import parallel as pl
+    from tidb_tpu_torch.errors import CollectiveError
 
-    monkeypatch.setenv("TIDB_TPU_COORDINATOR", "localhost:1")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    monkeypatch.setenv("TIDB_TPU_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("TIDB_TPU_NUM_PROCESSES", "2")
+    monkeypatch.setenv("TIDB_TPU_PROCESS_ID", "1")
+    monkeypatch.setenv("TIDB_TPU_DIST_TIMEOUT_S", "1")
+    with pytest.raises(CollectiveError, match="could not join"):
         pl.get_mesh()
+    assert tops.process_count() == 1 and not pl._DIST_INIT

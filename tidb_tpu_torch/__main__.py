@@ -12,8 +12,14 @@ catalog JSON on DDL, base-block snapshots on load/compact, a
 committed-delta log on every commit; boot reloads all of it
 (store/persist.py).
 
-(The JAX package also joins a multi-host deployment here; the port has
-no multi-device mesh yet: ROADMAP Queue 1 item 3.)
+With TIDB_TPU_COORDINATOR=host:port (and TIDB_TPU_NUM_PROCESSES,
+TIDB_TPU_PROCESS_ID; TIDB_TPU_COORD_ADDR for the coordination plane)
+the process first joins the multi-process mesh, before any statement
+runs (`copr.parallel._maybe_init_multihost`).  Every process of the
+mesh must then receive the same statements in the same order (SPMD):
+a process runs one mesh statement at a time (`ops.program`), and
+processes that issue different statements fail them with
+`CollectiveError` instead of mixing their results.
 """
 
 from __future__ import annotations
@@ -38,6 +44,11 @@ def main(argv=None):
 
     # no CUDA device and no --engine cpu: fail here, not at a query
     ops.use_device("cuda" if args.engine == "gpu" else "cpu")
+    # the multi-process mesh forms before the first statement; no-op
+    # without TIDB_TPU_COORDINATOR
+    from .copr.parallel import _maybe_init_multihost
+
+    _maybe_init_multihost()
     domain = Domain(data_dir=args.data_dir or None)
     if args.engine == "cpu":
         domain.global_vars["tidb_use_tpu"] = "0"

@@ -43,8 +43,18 @@ the JAX package's shard_map program:
   rebuilt mesh of survivors; a half-open probe restores the full mesh.
 
 The mesh keeps its name on the SQL surface (`engine:mesh` in EXPLAIN
-ANALYZE) so both packages report the same route.  One process drives
-its local positions; joining hosts is not ported (`_maybe_init_multihost`).
+ANALYZE) so both packages report the same route.
+
+Across processes (`_maybe_init_multihost`: TIDB_TPU_COORDINATOR joins a
+torch.distributed group) the mesh spans every process's positions and
+every process runs the same statements over the same data (SPMD).  A
+process places and runs only its own shards (a shard keeps its global
+first row); every shard's results are gathered to every process
+(`ops.gather_shards`), so each computes the same merged rows and takes
+the same rung decisions.  What chooses the collectives that follow (the
+mesh and its epoch, the chunk budget, each column's tier) is process
+0's decision (`ops.agree`); columns load in one fixed order and nothing
+prefetches in the background.
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from .ir import DAG, serialize_expr
 from .torch_eval import DeviceUnsupported
 from . import torch_engine as te
 from .torch_engine import _Analyzed, _fingerprint
+from ..ops.collective import first_local
 
 # ONE fused program in flight per process: concurrent statements take
 # turns on the card (resource-group admission rides this lock)
@@ -116,18 +127,29 @@ class _Card:
 class Mesh:
     """The positions one program runs over, in shard order: shard s runs
     on `devices[s]` (position `ids[s]`).  Several positions may share a
-    device (`ops.use_device(dev, shards=S)`)."""
+    device (`ops.use_device(dev, shards=S)`).  Across processes a
+    position of another process has device None; `local` lists the
+    shards this process runs and `owners[s]` the process holding shard
+    s."""
 
-    __slots__ = ("positions", "ids", "devices", "size", "where")
+    __slots__ = ("positions", "ids", "devices", "size", "where", "local",
+                 "owners")
 
     def __init__(self, positions):
         self.positions = tuple(positions)
         self.ids = tuple(pid for pid, _ in self.positions)
         self.devices = tuple(d for _, d in self.positions)
         self.size = len(self.positions)
+        self.local = tuple(s for s, d in enumerate(self.devices)
+                           if d is not None)
+        self.owners = tuple(ops.position_owner(pid) for pid in self.ids)
         # the devices behind the ids: a cache or program keyed on ids
         # alone could serve a tensor of another device set
         self.where = ",".join(str(d) for d in self.devices)
+
+    def local_devices(self):
+        """The devices of this process's shards."""
+        return [d for d in self.devices if d is not None]
 
 
 _MESH: Optional[Mesh] = None
@@ -137,29 +159,113 @@ _MESH_EPOCH: Optional[int] = None
 _MESH_LOCK = make_lock("copr.parallel:_MESH_LOCK")
 
 
-def _maybe_init_multihost():
-    """The multi-host seam of the JAX package (TIDB_TPU_COORDINATOR joins
-    a cluster before the mesh is built).  Joining hosts is not part of
-    the port yet: with the variable set this raises instead of running
-    single-host quietly."""
+_DIST_INIT = False
+
+
+def dist_backend(dev: torch.device) -> str:
+    """The process group's backend: TIDB_TPU_DIST_BACKEND when set, else
+    ``nccl`` when each process owns its own card and ``gloo`` on the
+    host or when processes share a card (NCCL refuses two ranks on one
+    device).  Chosen once, before the group forms; nothing switches it
+    after an error."""
     import os
 
-    if os.environ.get("TIDB_TPU_COORDINATOR"):
-        raise NotImplementedError(
-            "TIDB_TPU_COORDINATOR is set, but the port runs one process "
-            "over its local devices: multi-host meshes are not ported yet")
+    forced = os.environ.get("TIDB_TPU_DIST_BACKEND")
+    if forced:
+        return forced
+    if dev.type != "cuda" or (ops._SHARDS or 1) > 1:
+        return "gloo"
+    # one position on card `rank`: the layout of one process a card
+    rank = int(os.environ.get("TIDB_TPU_PROCESS_ID", "0"))
+    return "nccl" if dev.index == rank \
+        and torch.cuda.device_count() > rank else "gloo"
+
+
+def _maybe_init_multihost():
+    """Multi-process bring-up seam: when TIDB_TPU_COORDINATOR=host:port
+    is set, join the torch.distributed group (TIDB_TPU_NUM_PROCESSES,
+    TIDB_TPU_PROCESS_ID; backend from `dist_backend`, collective timeout
+    TIDB_TPU_DIST_TIMEOUT_S) before the mesh is built, so the mesh spans
+    every process's positions.  With TIDB_TPU_COORD_ADDR also set the
+    same processes form the coordination plane: process 0 binds, every
+    process registers its global position ids and all block until the
+    cluster forms.  Latched only on success (a raise retries on the next
+    call); a failed join raises `CollectiveError`, never runs the
+    process alone."""
+    global _DIST_INIT
+    if _DIST_INIT:
+        return
+    import datetime
+    import os
+
+    coord = os.environ.get("TIDB_TPU_COORDINATOR")
+    if not coord:
+        return
+    import torch.distributed as dist
+
+    from ..errors import CollectiveError
+
+    world = int(os.environ.get("TIDB_TPU_NUM_PROCESSES", "1"))
+    rank = int(os.environ.get("TIDB_TPU_PROCESS_ID", "0"))
+    dev = ops.device()
+    backend = dist_backend(dev)
+    if not dist.is_initialized():
+        if backend == "nccl":
+            torch.cuda.set_device(dev)
+        try:
+            dist.init_process_group(
+                backend=backend, init_method=f"tcp://{coord}",
+                world_size=world, rank=rank,
+                timeout=datetime.timedelta(seconds=float(os.environ.get(
+                    "TIDB_TPU_DIST_TIMEOUT_S", "120"))))
+        except Exception as e:  # noqa: BLE001 - the store's own types
+            raise CollectiveError(
+                f"process {rank} of {world} could not join the process "
+                f"group at {coord} ({backend}): {type(e).__name__}: "
+                f"{e}") from e
+    counts = ops.agree(len(ops.local_positions()), op="positions")
+    if counts != len(ops.local_positions()):
+        raise RuntimeError(
+            f"process {rank} places {len(ops.local_positions())} mesh "
+            f"positions, process 0 places {counts}: every process must "
+            "place the same number")
+    _DIST_INIT = True
+    addr = os.environ.get("TIDB_TPU_COORD_ADDR")
+    if addr:
+        from ..coord import activate_env_plane
+
+        activate_env_plane(addr, pid=rank, devices=list(ops.device_ids()),
+                           expect=world)
 
 
 def _eligible_devices():
-    """(mesh-eligible positions, membership epoch they derive from): every
-    position minus tripped breakers (plus half-open probe admissions),
-    published to the coordination plane so /status membership stays
-    truthful.  An all-tripped set returns every position: callers gate
-    on `_check_breaker` first."""
+    """(mesh-eligible positions, membership epoch they derive from).
+
+    One process: every position minus tripped breakers (plus half-open
+    probe admissions), published to the coordination plane so /status
+    membership stays truthful; an all-tripped set returns every
+    position (callers gate on `_check_breaker` first).  Several
+    processes: the plane's epoch-numbered membership broadcast, so a
+    breaker trip on any process shrinks every process's mesh; before
+    the cluster has formed, every position, identically everywhere."""
     from ..coord import get_plane
 
     plane = get_plane()
     positions = ops.mesh_devices()
+    if ops.process_count() > 1:
+        # drive the LOCAL breakers even though the broadcast filters:
+        # select_devices moves TRIPPED -> PROBING once a cooldown lapses,
+        # and that transition reports through the epoch hook, so a
+        # probe-eligible position rejoins every process's mesh
+        DEVICE_HEALTH.select_devices(
+            [_Card(pid) for pid in ops.device_ids()])
+        view = plane.view()
+        if view.formed and view.members:
+            allowed = view.device_ids()
+            sel = [p for p in positions if p[0] in allowed]
+            if sel:
+                return sel, view.epoch
+        return positions, view.epoch
     healthy = {c.id for c in DEVICE_HEALTH.select_devices(
         [_Card(pid) for pid, _ in positions])}
     chosen = [p for p in positions if p[0] in healthy] or positions
@@ -179,6 +285,12 @@ def get_mesh() -> Mesh:
     # mesh that holds the just-quarantined position
     with _MESH_LOCK:
         positions, epoch = _eligible_devices()
+        if ops.process_count() > 1:
+            # every process builds process 0's mesh: a broadcast that
+            # reached one process first must not split the layout
+            ids, epoch = ops.agree(
+                (tuple(pid for pid, _ in positions), epoch), op="mesh")
+            positions = [p for p in ops.mesh_devices() if p[0] in ids]
         if _MESH is None or _MESH.positions != tuple(positions):
             if _MESH is not None:
                 from ..metrics import REGISTRY
@@ -207,7 +319,9 @@ def _check_membership_epoch():
     from ..coord import CoordEpochMismatch, get_plane
 
     FAILPOINTS.hit("coord/member_lost", epoch=_MESH_EPOCH)
-    ep = get_plane().current_epoch()
+    # across processes the comparison is process 0's, so every process
+    # raises (and retries) together
+    ep = ops.agree(get_plane().current_epoch(), op="epoch")
     if _MESH_EPOCH is not None and ep != _MESH_EPOCH:
         from ..metrics import REGISTRY
 
@@ -219,7 +333,10 @@ def _check_breaker():
     """Raise while every position's breaker is open with no probe due.
     Failing cards fail their statements (typed, retriable once the
     cooldown admits a probe) instead of handing them to the host
-    engine."""
+    engine.  Across processes the membership broadcast filters instead
+    (`_eligible_devices`), as the JAX package's gate does."""
+    if ops.process_count() > 1:
+        return
     if not DEVICE_HEALTH.select_devices(
             [_Card(d) for d in ops.device_ids()]):
         raise DeviceUnavailableError(
@@ -246,9 +363,15 @@ def to_positions(arr: np.ndarray, mesh: Mesh) -> ops.Shards:
 def place_shards(host: torch.Tensor, mesh: Mesh, Tl: int) -> ops.Shards:
     """Rows [s*Tl, (s+1)*Tl) of a [n_pad, ...] host tensor (pinned when
     it goes to a card) on position s: the sharded layout of every
-    column, mask and packed code array."""
-    return ops.Shards(host[s * Tl:(s + 1) * Tl].to(d)
+    column, mask and packed code array.  Only this process's shards are
+    placed (None at the others)."""
+    return ops.Shards(None if d is None else host[s * Tl:(s + 1) * Tl].to(d)
                       for s, d in enumerate(mesh.devices))
+
+
+def on_card(mesh: Mesh) -> bool:
+    """True when any of this process's shards lives on a card."""
+    return any(d.type == "cuda" for d in mesh.local_devices())
 
 
 def _layout(base_rows: int, n_shards: int = 1, table=None
@@ -274,7 +397,9 @@ def _layout(base_rows: int, n_shards: int = 1, table=None
 
 def _tile_bucket(table) -> str:
     """The autotuner's table-level tiling decision ('pow2' default)."""
-    if table is None:
+    if table is None or ops.process_count() > 1:
+        # across processes every process must lay the table out alike:
+        # the tuner's exact tiling reads local pressure
         return "pow2"
     from ..layout import LAYOUT, layout_enabled
 
@@ -415,7 +540,7 @@ class _MeshCache:
                       device_ids=list(mesh.ids)) as sp:
                 # ONE flat host buffer filled block by block, pinned when
                 # it goes to a card, then one copy per shard
-                pin = any(d.type == "cuda" for d in mesh.devices)
+                pin = on_card(mesh)
                 host = torch.zeros(n_pad * tile, dtype=torch_dtype(wire),
                                    pin_memory=pin)
                 flat = host.numpy()
@@ -507,8 +632,11 @@ def load_columns(mesh: Mesh, table, store_cis):
 
 
 def _on_pool(get, mesh: Mesh, table, store_cis):
+    """`get(mesh, table, ci)` for every column: on the transfer pool, or
+    one after another in the given order when the mesh spans processes
+    (every process then issues its transfers in one fixed order)."""
     cis = list(store_cis)
-    if len(cis) <= 1:
+    if len(cis) <= 1 or ops.process_count() > 1:
         return [get(mesh, table, ci) for ci in cis]
     # pool workers re-attach to the submitter's span so transfer spans
     # land in the query's trace (contextvars don't cross threads)
@@ -520,29 +648,28 @@ def _on_pool(get, mesh: Mesh, table, store_cis):
     return [f.result() for f in futs]
 
 
-def get_layout_column(mesh: Mesh, table, store_ci: int):
+def get_layout_column(mesh: Mesh, table, store_ci: int, plan=None):
     """One column through the adaptive layout: ('hot', (data, valid)) or
     ('cold', ColdColumn).  Cold-tier hits/loads/promotions are counted;
     the chaos site `layout/decompress` (and any compression failure)
     falls back to the hot tier, parity-preserved, and counts on
-    `layout_cold_fallbacks_total`."""
+    `layout_cold_fallbacks_total`.  `plan` (a (tier, bits) pair) is the
+    tier decision when the caller already took it (`_agreed_plans`)."""
     from ..layout import layout_enabled
 
     if not layout_enabled():
         return ("hot", MESH_CACHE.get_column(mesh, table, store_ci))
     from ..errors import TiDBTPUError
-    from ..layout import COLD_CACHE, LAYOUT, compress_column
+    from ..layout import COLD_CACHE, compress_column
     from ..layout.coldtier import DECOMPRESS_FAILPOINT
     from ..metrics import REGISTRY
 
-    LAYOUT.observe(table, store_ci, "scan")
-    plan = LAYOUT.plan_for(table, store_ci)
+    tier, bits = plan or _column_plan(table, store_ci)
     cold_key = _column_key(table, store_ci, mesh) + ("cold",)
     n_pad = cold_key[5]
-    if plan.tier == "cold" and plan.bits:
+    if tier == "cold" and bits:
         try:
-            FAILPOINTS.hit(DECOMPRESS_FAILPOINT, col=store_ci,
-                           bits=plan.bits)
+            FAILPOINTS.hit(DECOMPRESS_FAILPOINT, col=store_ci, bits=bits)
             hit = COLD_CACHE.peek(cold_key) is not None
             entry = COLD_CACHE.get_or_load(
                 cold_key,
@@ -567,8 +694,34 @@ def get_layout_column(mesh: Mesh, table, store_ci: int):
 
 def load_layout_columns(mesh: Mesh, table, store_cis):
     """Per-column hot/cold entries for several columns, loaded
-    concurrently on the transfer pool."""
-    return _on_pool(get_layout_column, mesh, table, store_cis)
+    concurrently on the transfer pool.  Across processes every column's
+    tier is process 0's decision, and the loads run in order."""
+    cis = list(store_cis)
+    if ops.process_count() > 1:
+        plans = _agreed_plans(table, cis)
+        return [get_layout_column(mesh, table, ci, plan)
+                for ci, plan in zip(cis, plans)]
+    return _on_pool(get_layout_column, mesh, table, cis)
+
+
+def _column_plan(table, store_ci: int):
+    """The tuner's (tier, bits) for a column scanned now."""
+    from ..layout import LAYOUT
+
+    LAYOUT.observe(table, store_ci, "scan")
+    p = LAYOUT.plan_for(table, store_ci)
+    return p.tier, p.bits
+
+
+def _agreed_plans(table, store_cis):
+    """Process 0's (tier, bits) for each column (the tuner's decision
+    reads this process's own pressure and history)."""
+    from ..layout import layout_enabled
+
+    if not layout_enabled():
+        return [("hot", 0)] * len(store_cis)
+    return ops.agree([_column_plan(table, ci) for ci in store_cis],
+                     op="column tiers")
 
 
 def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
@@ -583,6 +736,10 @@ def prefetch_table(storage, table_id: int, min_rows: int = 1 << 20):
     if table.base_rows < min_rows:
         return
     ops.device()  # a missing card raises here, on the caller's thread
+    if ops.process_count() > 1:
+        # background transfers would interleave with the statements'
+        # collectives: queries load in order on demand instead
+        return
     try:
         mesh = get_mesh()
     except Exception:
@@ -630,7 +787,7 @@ def _del_mask(deleted, mesh: Mesh, n_pad: int) -> ops.Shards:
     the columns: the resident all-true one unless rows were MVCC-deleted."""
     if not deleted:
         return _all_true(mesh, n_pad)
-    pin = any(d.type == "cuda" for d in mesh.devices)
+    pin = on_card(mesh)
     host = torch.ones(n_pad * te.TILE, dtype=torch.bool, pin_memory=pin)
     host.numpy()[np.fromiter(sorted(deleted), dtype=np.int64,
                              count=len(deleted))] = False
@@ -1037,28 +1194,42 @@ def _readback(x):
 
 def _shard_calls(core, mesh_size: int, n_local: int, datas, valids,
                  del_mask, bounds, lvals, pargs, params):
-    """Issue `core` on every shard the bounds touch, in shard order, each
-    on its own position's tensors; nothing is read back in between
-    (launches are asynchronous, so the shards of a multi-card mesh
-    overlap up to the size reads inside a shard's own ops).  Returns the
-    per-shard outputs in shard order."""
-    outs = []
+    """Issue `core` on every local shard the bounds touch, in shard
+    order, each on its own position's tensors; nothing is read back in
+    between (launches are asynchronous, so the shards of a multi-card
+    mesh overlap up to the size reads inside a shard's own ops).
+    Returns every touched shard's output in shard order, those of other
+    processes gathered (`ops.gather_shards`) after the local shards
+    were issued."""
+    outs = [None] * mesh_size
     for s in range(mesh_size):
         sb = local_bounds(bounds, s, n_local)
-        if not sb:
-            continue  # the dispatch touches none of this shard's rows
-        outs.append(core(
+        if not sb or del_mask[s] is None:
+            # the dispatch touches none of this shard's rows, or the
+            # shard is another process's
+            continue
+        outs[s] = core(
             [d[s] for d in datas],
             [None if v is None else v[s] for v in valids],
             del_mask[s], sb, tuple(x[s] for x in lvals),
             tuple(x[s] for x in pargs),
             None if params is None else tuple(x[s] for x in params),
-            s * n_local))
+            s * n_local)
     return outs
 
 
+def _gathered(outs, local=None):
+    """The touched shards' outputs of every process, in shard order:
+    `local` first maps this process's outputs (what crosses processes);
+    other processes' arrive through `ops.gather_shards`."""
+    if local is not None:
+        outs = [None if o is None else local(o) for o in outs]
+    return [o for o in ops.gather_shards(outs) if o is not None]
+
+
 def _merge_shard_agg(an: _Analyzed, parts):
-    """The cross-shard merge of dense partials: gcount, counts and sums
+    """The cross-shard merge of dense partials (`parts`: every touched
+    shard's, gathered): gcount, counts and sums
     add in shard order on position 0's device (`ops.psum`); min/max
     values and first-row indices come back as per-shard [S, G] partials
     that the host merges after the readback, as the JAX package does
@@ -1109,8 +1280,9 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
         def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-                gcount, results = _merge_shard_agg(an, run(
-                    datas, valids, del_mask, bounds, lvals, pargs, params))
+                gcount, results = _merge_shard_agg(an, _gathered(run(
+                    datas, valids, del_mask, bounds, lvals, pargs,
+                    params)))
             with span("copr.readback") as sp:
                 gcount = _readback(gcount)
                 results = [_readback(r) for r in results]
@@ -1133,8 +1305,8 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
     if kind == "topn":
         def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
             with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-                parts = run(datas, valids, del_mask, bounds, lvals, pargs,
-                            params)
+                parts = _gathered(run(datas, valids, del_mask, bounds,
+                                      lvals, pargs, params))
             with span("copr.readback") as sp:
                 # every shard's candidates, read once all were issued
                 cnts = [int(c) for _h, c in parts]
@@ -1148,9 +1320,9 @@ def _build_mesh_fn(an: _Analyzed, kind: str, col_order: List[int],
 
     def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-            parts = run(datas, valids, del_mask, bounds, lvals, pargs,
-                        params)
-            handles = [torch.nonzero(m).reshape(-1) + g0 for g0, m in parts]
+            handles = _gathered(
+                run(datas, valids, del_mask, bounds, lvals, pargs, params),
+                lambda p: torch.nonzero(p[1]).reshape(-1) + p[0])
         with span("copr.readback") as sp:
             # shards hold ascending row blocks: shard order keeps the
             # handles ascending
@@ -1174,8 +1346,11 @@ def _wrap_sort_agg(an: _Analyzed, run):
 
     def wrapped(datas, valids, del_mask, bounds, lvals, pargs, params):
         with span("copr.device.execute", hbm_bytes=_hbm_bytes()):
-            parts = run(datas, valids, del_mask, bounds, lvals, pargs,
-                        params)
+            # across processes a shard sends only its first min(n_uniq,
+            # OUT) slots
+            parts = _gathered(
+                run(datas, valids, del_mask, bounds, lvals, pargs, params),
+                _compact_sort_part if ops.process_count() > 1 else None)
         outs = []
         with span("copr.readback") as sp:
             ks = [int(p[0]) for p in parts]
@@ -1198,6 +1373,16 @@ def _wrap_sort_agg(an: _Analyzed, run):
         return outs
 
     return wrapped
+
+
+def _compact_sort_part(p):
+    """A sort-mode shard output cut to its first min(n_uniq, OUT)
+    slots (the slots the readback takes)."""
+    n, keys, results, out = p
+    k = min(int(n), out)
+    return (n, [t[:k] for t in keys],
+            [tuple(x[:k] for x in r) if isinstance(r, tuple) else r[:k]
+             for r in results], out)
 
 
 def _sort_agg_chunks(outs: list, table, an: _Analyzed) -> List[Chunk]:
@@ -1372,7 +1557,12 @@ def _handle_mesh_failure(req: CopRequest, exc: BaseException,
             _ONES_CACHE.clear()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
-    if attempts + 1 >= MAX_MESH_ATTEMPTS:
+    if attempts + 1 >= MAX_MESH_ATTEMPTS or ops.process_count() > 1:
+        # across processes a retry on this process alone would pair its
+        # collectives with the next statement's on the others: the
+        # error reaches the statement (the program's abort fails it on
+        # every process), and the trip reaches every process's mesh
+        # through the membership epoch
         return False
     REGISTRY.inc("mesh_failover_retries_total")
     import logging
@@ -1383,7 +1573,30 @@ def _handle_mesh_failure(req: CopRequest, exc: BaseException,
     return True
 
 
+def statement_program(name: str, *key):
+    """The `ops.program` a statement's collectives run in across
+    processes, tagged with `key` (the request's plan and ranges: data
+    every process holds alike).  Joins the process group first, so a
+    statement is never split between one process and several."""
+    _maybe_init_multihost()
+    return ops.program(name, json.dumps(key, sort_keys=True, default=str)
+                       if ops.process_count() > 1 else "")
+
+
 def try_run_mesh(storage, req: CopRequest, table_id=None):
+    """`_try_run_mesh` in one program across processes: there the lazy
+    filter stream is drained inside the program (its gathers are the
+    statement's collectives), so the result is a list."""
+    with statement_program(
+            "mesh", req.dag,
+            [(kr.table_id, kr.start, kr.end) for kr in req.ranges]):
+        out = _try_run_mesh(storage, req, table_id)
+        if out is None or ops.process_count() == 1:
+            return out
+        return list(out)
+
+
+def _try_run_mesh(storage, req: CopRequest, table_id=None):
     """Run the whole request over the mesh with device failover; None if
     the plan is ineligible (the caller falls back to the per-region
     fan-out, and `req.mesh_reject_reason` says why in EXPLAIN ANALYZE).
@@ -1575,14 +1788,15 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
             datas.append(d)
             valids.append(v)
             col_layout.append(None)
-            wire_sig.append((str(d[0].dtype), v is None))
+            wire_sig.append((str(first_local(d).dtype), v is None))
     # computed-key remap operands ride the lvals tail AFTER the cold
     # dictionary operands (the ordering _build_sort_agg_core reads);
     # each mapping is uploaded once per base version (KeyRemap caches
     # its device copy, and the remap itself is cached per version)
     for r in (an.key_remaps or ()):
         if r is not None:
-            lvals.append(ops.Shards(r.on_device(d) for d in mesh.devices))
+            lvals.append(ops.Shards(None if d is None else r.on_device(d)
+                                    for d in mesh.devices))
     lvals = tuple(lvals)
     if not any(col_layout):
         col_layout = None
@@ -1657,8 +1871,9 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
         # across chunks: sort-agg chunks are root-merged partials, dense
         # agg accumulates via _merge_mesh_agg, TopN keeps every chunk's
         # candidates for the host's final pick
-        sub_bounds = chunk_bounds(bounds, chunk_budget_rows(kind),
-                                  MESH_RANGE_SLOTS)
+        sub_bounds = chunk_bounds(
+            bounds, ops.agree(chunk_budget_rows(kind), op="chunk budget"),
+            MESH_RANGE_SLOTS)
         n_chunks = len(sub_bounds)
 
         def _chunk_dispatch(ci, sub):
@@ -1760,8 +1975,10 @@ def _stream_filter(req, table, an, fn, datas, valids, del_mask, inserted,
         _check_membership_epoch()
         if tail:
             note_split(split_label, type(tail[0]).__name__)
-        sub_bounds = chunk_bounds(bounds, chunk_budget_rows("filter"),
-                                  MESH_RANGE_SLOTS)
+        sub_bounds = chunk_bounds(
+            bounds, ops.agree(chunk_budget_rows("filter"),
+                              op="chunk budget"),
+            MESH_RANGE_SLOTS)
         n_chunks = len(sub_bounds)
         for ci, sub in enumerate(sub_bounds):
             if ci:

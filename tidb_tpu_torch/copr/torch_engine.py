@@ -822,14 +822,18 @@ def _build_tile_fn(an: _Analyzed, kind: str, col_order: List[int],
 
 
 def _tile_devices():
-    """The mesh positions the per-tile path may place work on: every
-    position minus tripped breakers; an all-tripped set falls back to
-    the full list.  Tiles go round-robin over them."""
+    """The mesh positions the per-tile path may place work on: this
+    process's positions minus tripped breakers; an all-tripped set
+    falls back to the full list.  Tiles go round-robin over them.
+    Across processes every local position serves (no breaker filter, as
+    in the JAX package): the rung issues no collective."""
     from .. import ops
     from .device_health import DEVICE_HEALTH
     from .parallel import _Card
 
     cards = [_Card(d) for d in ops.device_ids()]
+    if ops.process_count() > 1:
+        return cards
     healthy = DEVICE_HEALTH.select_devices(cards)
     return healthy if healthy else cards
 

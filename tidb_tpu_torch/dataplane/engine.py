@@ -52,8 +52,9 @@ from typing import Dict, List, Optional, Tuple
 from ..errors import TiDBTPUError
 from ..metrics import REGISTRY
 from .partition import PartitionMap, PartitionMapMismatch
-from .rpc import (DataplaneRPCError, DataplaneServer, PeerDeadlineExceeded,
-                  PeerWaitCancelled, POOL, default_frag_timeout_s)
+from .rpc import (DataplaneRPCError, DataplaneServer, FragmentIneligible,
+                  PeerDeadlineExceeded, PeerWaitCancelled, POOL,
+                  default_frag_timeout_s, run_on_card)
 from .shard import Dataplane, ShardedTable, partition_tid
 
 log = logging.getLogger("tidb_tpu.dataplane")
@@ -130,7 +131,8 @@ def try_run_dataplane(storage, req) -> Optional[List]:
     """Serve `req` over the sharded data plane, or None when the
     request is not dataplane-eligible (unsharded table, stale shard
     snapshot, runtime payloads) or on any mid-flight failure — the
-    caller's local path is always a correct fallback."""
+    caller's local path is always a correct fallback, and every such
+    fallback of a sharded table counts on `dataplane_bypass_total`."""
     entry = _ACTIVE.get(id(storage))
     if entry is None:
         return None
@@ -160,7 +162,9 @@ def try_run_dataplane(storage, req) -> Optional[List]:
         try:
             pmap = dp.sync()
             if pmap is None:
-                return None  # broadcast not formed yet
+                # broadcast not formed yet
+                REGISTRY.inc("dataplane_bypass_total")
+                return None
             # member-leave hygiene: drop pooled sockets to peers no
             # longer in the broadcast (a dead peer must not hold fds)
             POOL.prune(dp.plane.view().addrs.values())
@@ -175,15 +179,23 @@ def try_run_dataplane(storage, req) -> Optional[List]:
             continue
         except _PeerLost:
             REGISTRY.inc("dataplane_peer_lost_total")
+            REGISTRY.inc("dataplane_bypass_total")
+            return None
+        except FragmentIneligible:
+            # the card's program declines a fragment: the statement
+            # takes the local path whole (on the card as well)
+            REGISTRY.inc("dataplane_bypass_total")
             return None
         except TiDBTPUError:
             raise  # semantic errors (kill, quota) surface unchanged
         except Exception:
             REGISTRY.inc("dataplane_errors_total")
+            REGISTRY.inc("dataplane_bypass_total")
             log.warning("dataplane dispatch failed; falling back to the "
                         "local path", exc_info=True)
             return None
     REGISTRY.inc("dataplane_errors_total")
+    REGISTRY.inc("dataplane_bypass_total")
     return None
 
 
@@ -199,9 +211,8 @@ def _frag_deadline_s(scope) -> float:
 
 
 def _exec_local(dp: Dataplane, ptid: int, clips, req) -> List:
-    """Run one partition's clips through the host's own client (per-tile
-    device path, delta overlay, failpoints — the whole existing region
-    pipeline, on the partition store)."""
+    """Run one partition's clips (or the pre-shard base's, for the
+    failover bypass) on this host's card (`run_on_card`)."""
     from ..store.kv import CopRequest, KeyRange
 
     sub = CopRequest(
@@ -209,10 +220,7 @@ def _exec_local(dp: Dataplane, ptid: int, clips, req) -> List:
         ranges=[KeyRange(ptid, s, e) for s, e in clips],
         ts=req.ts, concurrency=1, keep_order=True,
         engine=req.engine, backoff_budget_ms=req.backoff_budget_ms)
-    chunks = []
-    for resp in dp.storage.get_client().send(sub):
-        chunks.extend(resp.chunks)
-    return chunks
+    return run_on_card(dp.storage, sub)
 
 
 def _remote_once(addr: str, req, ranges, epoch: int, frag: str,
@@ -356,6 +364,8 @@ def _serve_partition(dp: Dataplane, st: ShardedTable, pmap: PartitionMap,
                     break
             continue
         err = resp.get("err")
+        if err == "ineligible":
+            raise FragmentIneligible(resp.get("msg", err))
         if err == "epoch":
             raise PartitionMapMismatch(resp.get("built_at"),
                                        resp.get("current"))

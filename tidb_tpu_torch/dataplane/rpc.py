@@ -52,6 +52,29 @@ from ..metrics import REGISTRY
 from ..store.fault import FAILPOINTS
 from ..util_concurrency import make_lock
 
+
+class FragmentIneligible(Exception):
+    """A partition fragment the card's whole-table program declines
+    (the mesh's reject reason): the statement bypasses the data plane
+    instead of running the fragment on the host engine."""
+
+
+def run_on_card(storage, sub) -> list:
+    """One partition fragment on this member's card: the mesh program
+    over the partition store (`copr.parallel.try_run_mesh`, K1 / K2
+    where the fragment needs them), never the host engine.  Raises
+    FragmentIneligible when the program declines."""
+    from ..copr.parallel import try_run_mesh
+
+    out = try_run_mesh(storage, sub)
+    if out is None:
+        REGISTRY.inc("dataplane_fragments_declined_total")
+        raise FragmentIneligible(
+            getattr(sub, "mesh_reject_reason", None) or "ineligible")
+    chunks = [c for c in out if c.num_rows]
+    REGISTRY.inc("dataplane_card_fragments_total")
+    return chunks
+
 _HDR = struct.Struct(">Q")
 #: frame cap (1 GiB): a corrupt header must not look like an allocation
 _MAX_FRAME = 1 << 30
@@ -282,12 +305,12 @@ class DataplaneServer:
                 dag=req["dag"], ranges=ranges, ts=int(req["ts"]),
                 concurrency=1, keep_order=True,
                 engine=req.get("engine", "tpu"), aux=req.get("aux"))
-            chunks = []
-            for resp in self.storage.get_client().send(sub):
-                chunks.extend(resp.chunks)
+            chunks = run_on_card(self.storage, sub)
             REGISTRY.inc("dataplane_remote_fragments_total")
             return {"chunks": chunks,
                     "rows": sum(c.num_rows for c in chunks)}
+        except FragmentIneligible as e:
+            return {"err": "ineligible", "msg": str(e)}
         except Exception as e:  # noqa: BLE001 - wire boundary
             REGISTRY.inc("dataplane_rpc_errors_total")
             return {"err": "exec", "msg": f"{type(e).__name__}: {e}"}

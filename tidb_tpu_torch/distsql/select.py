@@ -126,7 +126,14 @@ class SelectResult:
         # named so leak checks (tests/chaos harness) can find stragglers
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="tidb-tpu-select")
-        self._thread.start()
+        from .. import ops
+
+        # across processes every process must issue a statement's
+        # programs in one order: the producer starts at the first pull
+        # (the executor tree's order), not when the reader opens
+        self._started = ops.process_count() == 1
+        if self._started:
+            self._thread.start()
 
     # ---- producer side -------------------------------------------------
     def _put(self, item):
@@ -351,6 +358,9 @@ class SelectResult:
     def next_chunk(self) -> Optional[Chunk]:
         if self._closed:
             return None
+        if not self._started:
+            self._started = True
+            self._thread.start()
         item = self._chunks.get()
         if item is _DONE:
             if self._err is not None:

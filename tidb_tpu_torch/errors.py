@@ -88,6 +88,12 @@ class DeviceUnavailableError(ExecutorError):
     of quietly running on the host."""
 
 
+class CollectiveError(ExecutorError):
+    """A collective of a mesh that spans processes (torch.distributed)
+    failed or timed out: the statement fails with it; no process falls
+    back to running alone."""
+
+
 class KVError(TiDBTPUError):
     code = 1105
 

@@ -559,7 +559,7 @@ def _tidb_tpu_device_health(domain, isc):
         for did, dev in ops.mesh_devices():
             st = states.pop(did, None)
             rows.append((
-                did, dev.type,
+                did, "remote" if dev is None else dev.type,
                 st.state if st is not None else "healthy",
                 st.error_count if st is not None else 0,
                 st.consecutive_errors if st is not None else 0,

@@ -219,7 +219,7 @@ def compress_column(table, store_ci: int, mesh, n_pad: int,
     packable (callers fall back to the hot tier)."""
     from .. import ops
     from ..copr import torch_engine as te
-    from ..copr.parallel import _full_dtype, place_shards, torch_dtype
+    from ..copr.parallel import _full_dtype, on_card, place_shards, torch_dtype
 
     if info is None:
         info = pack_info(table, store_ci)
@@ -258,7 +258,7 @@ def compress_column(table, store_ci: int, mesh, n_pad: int,
               bits=info.bits) as sp:
         sp.set(bytes=packed.nbytes + max(packed_vals.nbytes, dt.itemsize))
         host = torch.from_numpy(packed)
-        if any(d.type == "cuda" for d in mesh.devices):
+        if on_card(mesh):
             host = host.pin_memory()
         packed_dev = place_shards(host, mesh, n_pad // mesh.size)
         if info.kind == "range":
@@ -324,7 +324,7 @@ def recompress_from_device(table, store_ci: int, n_pad: int,
     vpb = 8 // info.bits
     Tl = n_pad // len(shards)
     dt = _full_dtype(table.cols[store_ci].ftype.kind)
-    devices = [d.device for d in shards]
+    devices = [None if d is None else d.device for d in shards]
     if info.kind == "unique":
         packed_vals = dict_values(table, store_ci, info)
         operand = ops.on_positions(torch.from_numpy(packed_vals), devices)
@@ -339,6 +339,7 @@ def recompress_from_device(table, store_ci: int, n_pad: int,
     with span("copr.transfer", col=store_ci, tier="cold-demote",
               bits=info.bits) as sp:
         packed = ops.Shards(
+            None if d is None else
             encode(d, operand[s] if info.kind == "unique" else None,
                    row0=s * Tl * tile).reshape(Tl, tile // vpb)
             for s, d in enumerate(shards))

@@ -15,6 +15,9 @@ from typing import Dict
 
 LOCK_RANKS: Dict[str, int] = {
     # ---- outermost: global dispatch / mesh construction -----------------
+    # one statement's collectives across processes: held from the mesh
+    # build to the last gather, around every dispatch of the statement
+    "ops.collective:_PROGRAM_LOCK": 5,
     # resource-group admission sits IN FRONT of the dispatch door: its
     # registry mutex may be taken before DISPATCH_LOCK (never across it)
     "lifecycle.resgroup:ResourceGroupRegistry._mu": 8,

@@ -60,11 +60,13 @@ from ..copr.parallel import (
     get_mesh,
     load_columns,
     local_bounds,
+    statement_program,
 )
 from ..copr import torch_engine as te
 from ..copr.torch_engine import _Analyzed, _fingerprint, _to_state_dtype
 from ..copr.torch_eval import DeviceUnsupported, compile_expr
 from ..metrics import REGISTRY
+from ..ops.collective import first_local
 from ..store.fault import FAILPOINTS
 from ..store.kv import KeyRange
 from ..types import TypeKind
@@ -219,7 +221,7 @@ class _SideState:
             datas.append(d)
             valids.append(v)
         self.datas, self.valids = datas, valids
-        self.wire_sig = [(str(d[0].dtype), v is None)
+        self.wire_sig = [(str(first_local(d).dtype), v is None)
                          for d, v in zip(datas, valids)]
         self.del_mask = _del_mask(self.deleted, self.mesh, self.n_pad)
 
@@ -311,7 +313,8 @@ def rebased_remap(rm, src_idx: int):
 def remap_operands(remaps, mesh) -> tuple:
     """The mapping operands on every position (an `ops.Shards` each), in
     group-key order."""
-    return tuple(ops.Shards(r.on_device(d) for d in mesh.devices)
+    return tuple(ops.Shards(None if d is None else r.on_device(d)
+                            for d in mesh.devices)
                  for r in (remaps or ()) if r is not None)
 
 
@@ -390,9 +393,12 @@ def scalar_partial_states(aggs, env, row_mask, n: int):
 
 
 def merge_scalar_states(aggs, per_shard):
-    """The cross-shard merge of scalar partials: counts and sums add in
-    shard order on position 0's device (`ops.psum`); min/max stay
-    per-shard [S, 1] partials the host merges, as the JAX package's do."""
+    """The cross-shard merge of scalar partials (`per_shard`: None at a
+    shard of another process): counts and sums add in shard order
+    (`ops.psum`); min/max stay per-shard [S, 1] partials the host
+    merges, as the JAX package's do."""
+    per_shard = [st for st in ops.gather_shards(per_shard)
+                 if st is not None]
     out = []
     for i, a in enumerate(aggs):
         rs = [st[i] for st in per_shard]
@@ -408,7 +414,7 @@ def merge_scalar_states(aggs, per_shard):
 
 
 def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
-                  remaps, rvals):
+                  remaps, rvals, owners=None):
     """Grouped partial aggregation below the exchange, then the merge of
     every shard's partials ON the card: each shard sort-groups its `n`
     joined rows into the static cap_g budget (computed string keys
@@ -416,17 +422,20 @@ def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
     compacted groups are all-gathered (`exchange.replicate`), each shard
     merges them with a second sort-group (the same result on every
     shard) and emits its 1/S slice, and the slices gather on position
-    0.  `envs`, `row_masks` and each `rvals` operand are per shard.
+    0.  `envs`, `row_masks` and each `rvals` operand are per shard (None
+    at a shard of another process, `owners[s]` the process of shard s).
     Returns (per-shard n_uniq, merged n_uniq, merged keys, merged
-    states)."""
+    states), the merged ones on every process."""
     from ..copr import fusion
     from ..copr.parallel import _key_device
 
     S = len(envs)
     nk = len(group_by)
     gchunk = cap_g // S
-    outs = []
+    outs = [None] * S
     for s, (env, row_mask) in enumerate(zip(envs, row_masks)):
+        if env is None:
+            continue
         key_bits, key_flags = [], []
         rslot = 0
         for gi, g in enumerate(group_by):
@@ -450,20 +459,26 @@ def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
         slot_ok = (torch.arange(cap_g, dtype=torch.int64,
                                 device=row_mask.device)
                    < torch.clamp(n_uniq, max=cap_g))
-        outs.append((n_uniq, [k[pos] for k in skeys], states, slot_ok))
-    g_keys = [ex.replicate([o[1][i] for o in outs])
-              for i in range(2 * nk)]
-    g_ok = ex.replicate([o[3] for o in outs])
+        outs[s] = (n_uniq, [k[pos] for k in skeys], states, slot_ok)
+
+    def rep(get):
+        return ex.replicate([None if o is None else get(o) for o in outs],
+                            owners)
+
+    g_keys = [rep(lambda o, i=i: o[1][i]) for i in range(2 * nk)]
+    g_ok = rep(lambda o: o[3])
     g_states = []
-    for i, st in enumerate(outs[0][2]):
+    for i, st in enumerate(first_local(outs)[2]):
         if isinstance(st, tuple):
-            g_states.append(tuple(ex.replicate([o[2][i][j] for o in outs])
+            g_states.append(tuple(rep(lambda o, i=i, j=j: o[2][i][j])
                                   for j in range(len(st))))
         else:
-            g_states.append(ex.replicate([o[2][i] for o in outs]))
-    m_slices = []
+            g_states.append(rep(lambda o, i=i: o[2][i]))
+    m_slices = [None] * S
     mn_uniq = None
     for d in range(S):
+        if outs[d] is None:
+            continue
         mn, m_keys, m_states = fusion.merge_grouped_partials(
             aggs, [k[d] for k in g_keys[:nk]], [k[d] for k in g_keys[nk:]],
             g_ok[d],
@@ -475,10 +490,11 @@ def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
         def slc(y, d=d):
             return y[d * gchunk:(d + 1) * gchunk]
 
-        m_slices.append(([slc(k) for k in m_keys],
-                         [tuple(slc(x) for x in st) if isinstance(st, tuple)
-                          else slc(st) for st in m_states]))
-    # the slices gather on position 0, in shard order
+        m_slices[d] = ([slc(k) for k in m_keys],
+                       [tuple(slc(x) for x in st) if isinstance(st, tuple)
+                        else slc(st) for st in m_states])
+    # every shard's slice, in shard order, on the first local position
+    m_slices = ops.gather_shards(m_slices)
     m_keys = [_gather_slices([m[0][i] for m in m_slices])
               for i in range(len(m_slices[0][0]))]
     m_states = []
@@ -489,7 +505,8 @@ def grouped_phase(aggs, group_by, envs, row_masks, n: int, cap_g: int,
                                   for j in range(len(st))))
         else:
             m_states.append(_gather_slices([m[1][i] for m in m_slices]))
-    return [o[0] for o in outs], mn_uniq, m_keys, m_states
+    return [None if o is None else o[0] for o in outs], mn_uniq, m_keys, \
+        m_states
 
 
 def _gather_slices(parts):
@@ -501,7 +518,8 @@ def _gather_slices(parts):
 
 def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
                   mode: str, S: int, cap_p: int, cap_b: int, cap_out: int,
-                  cap_g: int, pack=None, remaps=None):
+                  cap_g: int, pack=None, remaps=None, local=None,
+                  owners=None):
     """The exchange program over the mesh's S shards: scan+filter on both
     sides per shard, partition exchange (all_to_all) or build broadcast
     (all_gather), the two-pass count+emit local join on each shard
@@ -535,7 +553,11 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
     aggs = spec.aggs
     group_by = spec.group_by
     grouped = aggs is not None and group_by is not None
-    shards = range(S)
+    # this process's shards (all of them when it runs alone); every
+    # per-shard list below is S long with None at the others
+    shards = tuple(range(S)) if local is None else tuple(local)
+    n_barr = 1 + 2 * len(b_order)
+    n_parr = 2 + 2 * len(p_order)
 
     def mk_keys(cols_env, key_pos):
         """(join key, partition key): the join key is the EXACT packed
@@ -560,65 +582,66 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
         rvals = extra[1:] if grouped else ()
 
         # ---- build side: filter, partition, exchange ------------------
-        b_arrays, bsels, bmixes = [], [], []
+        b_arrays, bsels, bmixes = [None] * S, [None] * S, [None] * S
         for s in shards:
             b_cols, bm = b_prep(s, b_datas, b_valids, b_del, b_bounds)
             bk, bmix = mk_keys(b_cols, b_key_pos)
             # NULL keys never match
-            bsels.append(bm & key_valid(b_cols, b_key_pos))
-            bmixes.append(bmix)
+            bsels[s] = bm & key_valid(b_cols, b_key_pos)
+            bmixes[s] = bmix
             arrs = [bk]
             for ci in b_order:
                 d, v = b_cols[ci]
                 arrs.append(d)
                 arrs.append(v)
-            b_arrays.append(arrs)
-        zero = torch.zeros((), dtype=torch.int64, device=bsels[0].device)
+            b_arrays[s] = arrs
+        zero = torch.zeros((), dtype=torch.int64,
+                           device=bsels[shards[0]].device)
         if mode == "shuffle":
             recv_b, b_ok, b_over = ex.shuffle(b_arrays, bsels, bmixes,
-                                              cap_b)
+                                              cap_b, owners)
         else:  # broadcast: replicate the whole filtered build side
-            recv_b = [ex.replicate([a[i] for a in b_arrays])
-                      for i in range(len(b_arrays[0]))]
-            b_ok = ex.replicate(bsels)
+            recv_b = [ex.replicate(ex.pick(b_arrays, i), owners)
+                      for i in range(n_barr)]
+            b_ok = ex.replicate(bsels, owners)
             b_over = zero
-        builds = [ex.sorted_build(recv_b[0][d], b_ok[d]) for d in shards]
+        builds = {d: ex.sorted_build(recv_b[0][d], b_ok[d]) for d in shards}
 
         # ---- probe side ----------------------------------------------
-        p_arrays, psels, pmixes = [], [], []
+        p_arrays, psels, pmixes = [None] * S, [None] * S, [None] * S
         for s in shards:
             p_cols, pm = p_prep(s, p_datas, p_valids, p_del, p_bounds)
             pk, pmix = mk_keys(p_cols, p_key_pos)
             pk_v = key_valid(p_cols, p_key_pos)
             # left outer keeps NULL-key probe rows (they emit with NULL
             # build cols); inner drops them pre-exchange
-            psels.append(pm if louter else pm & pk_v)
-            pmixes.append(torch.where(pk_v, pmix, torch.zeros_like(pmix)))
+            psels[s] = pm if louter else pm & pk_v
+            pmixes[s] = torch.where(pk_v, pmix, torch.zeros_like(pmix))
             arrs = [torch.where(pk_v, pk, torch.zeros_like(pk)), pk_v]
             for ci in p_order:
                 d, v = p_cols[ci]
                 arrs.append(d)
                 arrs.append(v)
-            p_arrays.append(arrs)
+            p_arrays[s] = arrs
         if mode == "shuffle":
             recv_p, p_ok, p_over = ex.shuffle(p_arrays, psels, pmixes,
-                                              cap_p)
+                                              cap_p, owners)
         else:  # probe rows stay local on the broadcast rung
-            recv_p = [[a[i] for a in p_arrays]
-                      for i in range(len(p_arrays[0]))]
+            recv_p = [ex.pick(p_arrays, i) for i in range(n_parr)]
             p_ok = psels
             p_over = zero
 
         # ---- two-pass count+emit local join, shard by shard ----------
         overflow = b_over + p_over.to(b_over.device)
-        j_overs, rows, envs, row_masks = [], [], [], []
+        j_overs, rows, envs, row_masks = [None] * S, [None] * S, \
+            [None] * S, [None] * S
         for d in shards:
             sbk, bord, nb = builds[d]
             rpk, rpk_v = recv_p[0][d], recv_p[1][d]
             src, bidx, out_valid, matched, j_over = ex.expand_matches(
                 sbk, bord, nb, rpk, p_ok[d], rpk_v & p_ok[d], cap_out,
                 louter)
-            j_overs.append(j_over)
+            j_overs[d] = j_over
             probe_out = [(recv_p[2 + 2 * j][d][src],
                           recv_p[3 + 2 * j][d][src])
                          for j in range(len(p_order))]
@@ -638,35 +661,37 @@ def _build_mpp_fn(spec: MPPJoinSpec, ps: _SideState, bs: _SideState,
                          for j in range(len(b_order))]
             if aggs is None:
                 keep = out_valid if louter else out_valid & hit
-                rows.append((keep, probe_out + build_out))
+                rows[d] = (keep, probe_out + build_out)
                 continue
             # ---- partial aggregation (inner join only) ---------------
             wp = len(p_order)
             env = {ci: probe_out[j] for j, ci in enumerate(p_order)}
             for j in range(len(b_order)):
                 env[wp + j] = build_out[j]
-            envs.append(env)
-            row_masks.append(out_valid & hit)
-        j_over = ops.psum(j_overs)
+            envs[d] = env
+            row_masks[d] = out_valid & hit
+        j_over = ops.psum(ops.gather_shards(j_overs)).to(overflow.device)
 
         if aggs is None:
             return torch.stack([overflow, j_over]), rows
         if grouped:
             n_uniqs, mn_uniq, m_keys, m_states = grouped_phase(
                 aggs, group_by, envs, row_masks, cap_out, cap_g, remaps,
-                rvals)
+                rvals, owners)
             # the BUDGET is a runtime scalar: overflow is detected on the
             # card against it, but only the pow2 capacity shapes the
             # program
-            over_l = ops.psum([torch.clamp(n - gbudget, min=0)
-                               for n in n_uniqs])
+            over_l = ops.psum(ops.gather_shards(
+                [None if n is None else torch.clamp(n - gbudget, min=0)
+                 for n in n_uniqs]))
             over_m = torch.clamp(mn_uniq - gbudget, min=0)
             dev0 = overflow.device
             return (torch.stack([overflow, j_over, over_l.to(dev0),
                                  over_m.to(dev0), mn_uniq.to(dev0)]),
                     (m_keys, m_states))
         return (torch.stack([overflow, j_over]), merge_scalar_states(
-            aggs, [scalar_partial_states(aggs, env, rm, cap_out)
+            aggs, [None if env is None
+                   else scalar_partial_states(aggs, env, rm, cap_out)
                    for env, rm in zip(envs, row_masks)]))
 
     return prog
@@ -695,10 +720,15 @@ def select_rows(rows):
     """The kept rows of every (data, valid) pair of every shard, selected
     on each shard's device and read back in shard order: one numpy
     (data, valid) pair a column.  `rows` holds one (keep, [(data, valid),
-    ...]) a shard."""
-    sels = [torch.nonzero(keep).reshape(-1) for keep, _flat in rows]
-    per = [[(d[sel].cpu().numpy(), v[sel].cpu().numpy()) for d, v in flat]
-           for sel, (_keep, flat) in zip(sels, rows)]
+    ...]) a shard (None at a shard of another process, whose selected
+    rows are gathered)."""
+    def local(keep, flat):
+        sel = torch.nonzero(keep).reshape(-1)
+        return [(d[sel].cpu().numpy(), v[sel].cpu().numpy())
+                for d, v in flat]
+
+    per = [p for p in ops.gather_shards(
+        [None if r is None else local(*r) for r in rows]) if p is not None]
     if len(per) == 1:
         return per[0]
     return [(np.concatenate([p[j][0] for p in per]),
@@ -975,7 +1005,8 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
     fn = _COMPILED.get(fp)
     if fn is None:
         fn = _build_mpp_fn(spec, ps, bs, mode, S, cap_p, cap_b, cap_out,
-                           cap_g, pack=pack, remaps=remaps)
+                           cap_g, pack=pack, remaps=remaps,
+                           local=mesh.local, owners=mesh.owners)
         _COMPILED.put(fp, fn)
 
     # deterministic mid-shuffle fault injection (chaos harness): fires
@@ -1036,6 +1067,14 @@ def _run_once(storage, spec: MPPJoinSpec, mode: str) -> List[Chunk]:
 
 
 def run_mpp_join(storage, spec: MPPJoinSpec) -> Tuple[List[Chunk], str]:
+    """`_run_mpp_join` in one program across processes."""
+    with statement_program("mpp", spec.kind, [
+            (sd.table_id, sd.dag, sd.key_pos)
+            for sd in (spec.probe, spec.build)]):
+        return _run_mpp_join(storage, spec)
+
+
+def _run_mpp_join(storage, spec: MPPJoinSpec) -> Tuple[List[Chunk], str]:
     """Run the join on the card; (chunks, mode) on success, raises
     MPPIneligible when the host rung must serve it (a structural cause
     only).  Overflow steps down the ladder internally; a device runtime

@@ -16,7 +16,11 @@ shard's arrays on its own position's device: `exchange` (all_to_all)
 and `replicate` (all_gather) take the per-shard list and return one, as
 explicit copies in a fixed order (shard d concatenates what it receives
 in source order), so every run moves the same rows to the same slots.
-At S = 1 both are a reshape.
+At S = 1 both are a reshape.  When the mesh spans processes each list
+holds None at another process's shards (`owners[s]` names the process
+of shard s): blocks between one process's shards stay copies, the rest
+travel in one `ops.collective.all_to_all` (exchange) or all-gather
+(replicate).
 
 Every sort here is STABLE (`torch.sort(..., stable=True)`): the order of
 duplicate build keys sets the emission order, and so the order of float
@@ -87,46 +91,65 @@ def pack_buckets(pid, pack_mask, n_parts: int, cap: int,
     return out, bucket_valid, overflow
 
 
-def exchange(bucketed: Sequence) -> List:
+def _across(owners) -> bool:
+    return owners is not None and ops.process_count() > 1
+
+
+def pick(per_shard: Sequence, i: int) -> List:
+    """Item i of every shard's entry (None at another process's
+    shards)."""
+    return [None if x is None else x[i] for x in per_shard]
+
+
+def exchange(bucketed: Sequence, owners=None) -> List:
     """all_to_all over the shards: `bucketed[s]` is shard s's [S, cap]
     pack, whose row d is its partition destined for shard d.  Returns
     one [S*cap] array a shard, on that shard's device: row block j of
     shard d's array is the partition shard j sent it."""
     S = len(bucketed)
     if S == 1:
-        return [bucketed[0].reshape(-1)]
+        return [None if b is None else b.reshape(-1) for b in bucketed]
+    if _across(owners):
+        from ..ops.collective import all_to_all
+
+        return all_to_all(bucketed, owners)
     return [torch.cat([bucketed[s][d].to(bucketed[d].device)
                        for s in range(S)])
             for d in range(S)]
 
 
-def replicate(local: Sequence) -> List:
+def replicate(local: Sequence, owners=None) -> List:
     """all_gather: every shard receives every shard's array, flattened
     and concatenated in shard order, on its own device (the
     broadcast-join rung: the build side is replicated instead of
     partitioned)."""
     S = len(local)
     if S == 1:
-        return [local[0].reshape(-1)]
-    flat = [x.reshape(-1) for x in local]
-    return [torch.cat([x.to(local[d].device) for x in flat])
+        return [None if x is None else x.reshape(-1) for x in local]
+    full = ops.gather_shards(local) if _across(owners) else local
+    flat = [x.reshape(-1) for x in full]
+    return [None if local[d] is None else
+            torch.cat([x.to(local[d].device) for x in flat])
             for d in range(S)]
 
 
 def shuffle(arrays: Sequence, sel: Sequence, mix: Sequence,
-            cap: int) -> Tuple[List, List, object]:
+            cap: int, owners=None) -> Tuple[List, List, object]:
     """The hash shuffle of every shard's rows: shard s packs its
     `arrays[s]` (the rows `sel[s]` keeps) into [S, cap] buckets by the
     partition ids of `mix[s]`, and each array goes all_to_all.  Returns
     (received [array][shard], received validity [shard], the buckets'
     overflow summed in shard order)."""
     S = len(arrays)
-    packs = [pack_buckets(partition_ids(mix[s], S), sel[s], S, cap,
+    packs = [None if arrays[s] is None else
+             pack_buckets(partition_ids(mix[s], S), sel[s], S, cap,
                           arrays[s]) for s in range(S)]
-    recv = [exchange([p[0][i] for p in packs])
-            for i in range(len(arrays[0]))]
-    return recv, exchange([p[1] for p in packs]), \
-        ops.psum([p[2] for p in packs])
+    n_arr = len(next(a for a in arrays if a is not None))
+    bucketed = pick(packs, 0)
+    recv = [exchange(pick(bucketed, i), owners) for i in range(n_arr)]
+    over = pick(packs, 2)
+    return recv, exchange(pick(packs, 1), owners), \
+        ops.psum(ops.gather_shards(over) if _across(owners) else over)
 
 
 def combine_keys(keys):

@@ -54,6 +54,7 @@ from ..copr.parallel import (
     _check_membership_epoch,
     _handle_mesh_failure,
     get_mesh,
+    statement_program,
 )
 from ..copr.torch_engine import (_fingerprint, _reindex_expr,
                                  rewrite_for_dict_resolved)
@@ -185,7 +186,8 @@ def _slot_resolver(spec: MPPJoinTreeSpec, states, n_slots: int,
 
 def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                    S: int, n_in: int, cap_p: int, cap_b: int, cap_out: int,
-                   conds_rw, elide_probe: bool = False):
+                   conds_rw, elide_probe: bool = False, local=None,
+                   owners=None):
     """One rung's exchange program over the mesh's S shards.  Inputs: the
     intermediate (one tensor a shard per slot; rung 0 builds it inline
     from side 0's scan) + the build side's cached scan columns
@@ -197,7 +199,11 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     `elide_probe`: the caller proved the intermediate is ALREADY
     hash-partitioned by this rung's key slots (the previous shuffle rung
     used the same ones), so the probe side skips pack+exchange and only
-    the build side exchanges."""
+    the build side exchanges.
+
+    `local`: this process's shards (default all S); every per-shard list
+    is S long with None at another process's shards (`owners[s]` the
+    process of shard s)."""
     from ..copr.torch_eval import compile_expr
 
     rung = spec.rungs[r]
@@ -219,20 +225,24 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     # semi/anti rungs then never touch the emission buffer at all
     fast_filter = (kind in ("semi", "anti_semi") and not multi
                    and not conds_rw)
-    shards = range(S)
+    shards = tuple(range(S)) if local is None else tuple(local)
+    n_parr = 2 + 2 * n_slots
+    n_barr = 1 + 2 * len(b_order)
 
     def prog(*args):
         off = 0
+        slots = [None] * S
         if first:
             p_datas, p_valids, p_del, p_bounds = args[:4]
             off = 4
-            slots, mask = [], []
+            mask = [None] * S
             for s in shards:
                 cols0, m0 = p_prep(s, p_datas, p_valids, p_del, p_bounds)
-                slots.append([cols0[ci] for ci in p_order0])
-                mask.append(m0)
+                slots[s] = [cols0[ci] for ci in p_order0]
+                mask[s] = m0
         else:
-            slots = [[] for _ in shards]
+            for s in shards:
+                slots[s] = []
             for _i in range(n_slots):
                 for s in shards:
                     slots[s].append((args[off][s], args[off + 1][s]))
@@ -242,7 +252,8 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
         b_datas, b_valids, b_del, b_bounds = args[off:off + 4]
 
         # ---- probe (intermediate) side -------------------------------
-        p_arrays, psels, pmixes, zero = [], [], [], None
+        p_arrays, psels, pmixes, zero = [None] * S, [None] * S, \
+            [None] * S, None
         for s in shards:
             sl = slots[s]
             keys = [sl[i][0].to(torch.int64) for i in left_slots]
@@ -251,30 +262,30 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                 kv = kv & sl[i][1]
             mix = ex.combine_keys(keys)
             if kind in ("inner", "semi"):
-                psels.append(mask[s] & kv)
+                psels[s] = mask[s] & kv
             else:  # left_outer / anti_semi keep NULL-key rows (unmatched)
-                psels.append(mask[s])
+                psels[s] = mask[s]
             mix0 = torch.where(kv, mix, torch.zeros_like(mix))
-            pmixes.append(mix0)
+            pmixes[s] = mix0
             arrs = [mix0, kv]
             for d, v in sl:
                 arrs.append(d)
                 arrs.append(v)
-            p_arrays.append(arrs)
+            p_arrays[s] = arrs
             if zero is None:
                 zero = torch.zeros((), dtype=torch.int64, device=mix.device)
         if mode == "shuffle" and not elide_probe:
-            recv, p_ok, p_over = ex.shuffle(p_arrays, psels, pmixes, cap_p)
+            recv, p_ok, p_over = ex.shuffle(p_arrays, psels, pmixes, cap_p,
+                                            owners)
         else:  # broadcast rung, or residency-elided re-shuffle: the
             # intermediate stays local (for elision the build side
             # below still exchanges — equal keys already co-reside)
-            recv = [[a[i] for a in p_arrays]
-                    for i in range(len(p_arrays[0]))]
+            recv = [ex.pick(p_arrays, i) for i in range(n_parr)]
             p_ok = psels
             p_over = zero
 
         # ---- build side ----------------------------------------------
-        b_arrays, bsels, bmixes = [], [], []
+        b_arrays, bsels, bmixes = [None] * S, [None] * S, [None] * S
         for s in shards:
             b_cols, bm = b_prep(s, b_datas, b_valids, b_del, b_bounds)
             bkeys = [b_cols[kp][0].to(torch.int64) for kp in b_key_pos]
@@ -282,27 +293,27 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
             bk_v = b_cols[b_key_pos[0]][1]
             for kp in b_key_pos[1:]:
                 bk_v = bk_v & b_cols[kp][1]
-            bsels.append(bm & bk_v)  # NULL build keys never match
-            bmixes.append(bmix)
+            bsels[s] = bm & bk_v  # NULL build keys never match
+            bmixes[s] = bmix
             arrs = [bmix]
             for ci in b_order:
                 d, v = b_cols[ci]
                 arrs.append(d)
                 arrs.append(v)
-            b_arrays.append(arrs)
+            b_arrays[s] = arrs
         if mode == "shuffle":
             recv_b, b_ok, b_over = ex.shuffle(b_arrays, bsels, bmixes,
-                                              cap_b)
+                                              cap_b, owners)
         else:
-            recv_b = [ex.replicate([a[i] for a in b_arrays])
-                      for i in range(len(b_arrays[0]))]
-            b_ok = ex.replicate(bsels)
+            recv_b = [ex.replicate(ex.pick(b_arrays, i), owners)
+                      for i in range(n_barr)]
+            b_ok = ex.replicate(bsels, owners)
             b_over = zero
         overflow = p_over + b_over.to(p_over.device)
 
-        out_slots = [[] for _ in range(2 * n_slots + (
+        out_slots = [[None] * S for _ in range(2 * n_slots + (
             0 if kind in ("semi", "anti_semi") else 2 * len(b_order)))]
-        keeps, j_overs = [], []
+        keeps, j_overs = [None] * S, [None] * S
         for d in shards:
             sbk, bord, nb = ex.sorted_build(recv_b[0][d], b_ok[d])
             rpk, rkv = recv[0][d], recv[1][d]
@@ -314,16 +325,16 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                 hi = torch.minimum(torch.searchsorted(sbk, rpk, right=True),
                                    nb)
                 matched = (p_ok[d] & rkv) & (hi > lo)
-                keeps.append(p_ok[d] & (matched if kind == "semi"
-                                        else ~matched))
+                keeps[d] = p_ok[d] & (matched if kind == "semi"
+                                      else ~matched)
                 for i in range(2 * n_slots):
-                    out_slots[i].append(recv[2 + i][d])
+                    out_slots[i][d] = recv[2 + i][d]
                 continue
 
             # ---- two-pass count+emit expansion -----------------------
             src, bidx, out_valid, matched, j_over = ex.expand_matches(
                 sbk, bord, nb, rpk, p_ok[d], rkv & p_ok[d], cap_out, louter)
-            j_overs.append(j_over)
+            j_overs[d] = j_over
             hit = matched
             if multi:
                 # mix-hash candidates: re-verify TRUE per-column equality
@@ -349,24 +360,25 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                                      device=src.device).index_add_(
                     0, src, (hit & out_valid).to(torch.int32))
                 matched_any = counts > 0
-                keeps.append(p_ok[d] & (matched_any if kind == "semi"
-                                        else ~matched_any))
+                keeps[d] = p_ok[d] & (matched_any if kind == "semi"
+                                      else ~matched_any)
                 for i in range(2 * n_slots):
-                    out_slots[i].append(recv[2 + i][d])
+                    out_slots[i][d] = recv[2 + i][d]
                 continue
 
             # inner / left_outer emission: gather probe slots, append
             # build
             for i in range(n_slots):
-                out_slots[2 * i].append(recv[2 + 2 * i][d][src])
-                out_slots[2 * i + 1].append(recv[3 + 2 * i][d][src])
+                out_slots[2 * i][d] = recv[2 + 2 * i][d][src]
+                out_slots[2 * i + 1][d] = recv[3 + 2 * i][d][src]
             for j in range(len(b_order)):
-                out_slots[2 * n_slots + 2 * j].append(
-                    recv_b[1 + 2 * j][d][bidx])
-                out_slots[2 * n_slots + 2 * j + 1].append(
-                    hit & recv_b[2 + 2 * j][d][bidx])
-            keeps.append(out_valid if louter else out_valid & hit)
-        j_over = ops.psum(j_overs).to(overflow.device) if j_overs else zero
+                out_slots[2 * n_slots + 2 * j][d] = \
+                    recv_b[1 + 2 * j][d][bidx]
+                out_slots[2 * n_slots + 2 * j + 1][d] = \
+                    hit & recv_b[2 + 2 * j][d][bidx]
+            keeps[d] = out_valid if louter else out_valid & hit
+        j_over = zero if fast_filter else \
+            ops.psum(ops.gather_shards(j_overs)).to(overflow.device)
         return torch.stack([overflow, j_over]), out_slots, keeps
 
     return prog
@@ -409,7 +421,7 @@ def _tree_key_remaps(spec: MPPJoinTreeSpec, states):
 
 
 def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
-                    group_rw, remaps):
+                    group_rw, remaps, owners=None):
     """The final partial-aggregation program over the finished
     intermediate (one tensor a shard per slot): scalar partials summed
     across shards, or the grouped sort-group + on-card merge over the
@@ -420,23 +432,27 @@ def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
 
     def prog(*args):
         mask = args[2 * n_slots]
-        envs = [{i: (args[2 * i][s], args[2 * i + 1][s])
+        envs = [None if mask[s] is None else
+                {i: (args[2 * i][s], args[2 * i + 1][s])
                  for i in range(n_slots)} for s in range(len(mask))]
         off = 2 * n_slots + 1
         if grouped:
             gbudget = args[off]
             rvals = args[off + 1:]
             n_uniqs, mn_uniq, m_keys, m_states = grouped_phase(
-                aggs_rw, group_rw, envs, mask, n_in, cap_g, remaps, rvals)
-            over_l = ops.psum([torch.clamp(n - gbudget, min=0)
-                               for n in n_uniqs])
+                aggs_rw, group_rw, envs, mask, n_in, cap_g, remaps, rvals,
+                owners)
+            over_l = ops.psum(ops.gather_shards(
+                [None if n is None else torch.clamp(n - gbudget, min=0)
+                 for n in n_uniqs]))
             over_m = torch.clamp(mn_uniq - gbudget, min=0)
             dev0 = over_l.device
             return (torch.stack([over_l, over_m.to(dev0),
                                  mn_uniq.to(dev0)]),
                     (m_keys, m_states))
         return None, merge_scalar_states(
-            aggs_rw, [scalar_partial_states(aggs_rw, env, m, n_in)
+            aggs_rw, [None if env is None
+                      else scalar_partial_states(aggs_rw, env, m, n_in)
                       for env, m in zip(envs, mask)])
 
     return prog
@@ -465,6 +481,7 @@ def _assemble_tree_rows(spec, states, mask, flats) -> List[Chunk]:
     """The output slots of the kept rows, selected on each shard's card
     and read back in shard order."""
     host = select_rows([
+        None if keep is None else
         (keep, [(flats[2 * i][s], flats[2 * i + 1][s])
                 for i in spec.out_slots])
         for s, keep in enumerate(mask)])
@@ -610,7 +627,8 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         if fn is None:
             fn = _build_rung_fn(spec, r, states, mode, S, n_in, cap_p,
                                 cap_b, cap_out, rung_conds[r],
-                                elide_probe=elide)
+                                elide_probe=elide, local=mesh.local,
+                                owners=mesh.owners)
             _COMPILED.put(fp, fn)
         FAILPOINTS.hit(TREE_FAILPOINT, rung=r, mode=mode,
                        kind=rung.kind, device_ids=mesh_ids)
@@ -685,7 +703,8 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
              if remaps else ""))
     fn = _COMPILED.get(fp)
     if fn is None:
-        fn = _build_final_fn(spec, n_in, cap_g, aggs_rw, group_rw, remaps)
+        fn = _build_final_fn(spec, n_in, cap_g, aggs_rw, group_rw, remaps,
+                             owners=mesh.owners)
         _COMPILED.put(fp, fn)
     args = tuple(inter) + (mask,)
     if grouped:
@@ -712,6 +731,14 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
 
 def run_mpp_jointree(storage,
                      spec: MPPJoinTreeSpec) -> Tuple[List[Chunk], str]:
+    """`_run_mpp_jointree` in one program across processes."""
+    with statement_program("mpp tree", [
+            (sd.table_id, sd.dag, sd.key_pos) for sd in spec.sides]):
+        return _run_mpp_jointree(storage, spec)
+
+
+def _run_mpp_jointree(storage,
+                      spec: MPPJoinTreeSpec) -> Tuple[List[Chunk], str]:
     """Run the rung ladder on the card; (chunks, mode) on success, raises
     MPPIneligible when the host chain must serve it (a structural cause
     only).  Per-rung overflow steps that rung down to broadcast;

@@ -89,7 +89,8 @@ def _mesh_positions() -> list:
         return []
     mesh = pl._MESH
     held = set(mesh.ids) if mesh is not None else set()
-    return [{"position": pid, "device": str(d),
+    return [{"position": pid,
+             "device": "remote" if d is None else str(d),
              "in_current_mesh": pid in held} for pid, d in positions]
 
 

@@ -391,6 +391,7 @@ def try_run_batched(storage, req):
     runtime errors of the batched device program propagate to the
     statement."""
     from . import effective_window_s, hoist_conds, microbatch_max
+    from .. import ops
     from ..copr import torch_engine as te
     from ..copr.ir import DAG
     from ..copr.torch_eval import DeviceUnsupported
@@ -401,8 +402,10 @@ def try_run_batched(storage, req):
     tid = dag.scan.table_id
     if not req.ranges or any(kr.table_id != tid for kr in req.ranges):
         return None  # partitioned fan-out: solo paths handle it
-    # (the JAX package also declines in a multi-process deployment; the
-    # port has none yet: ROADMAP Queue 1 item 3)
+    if ops.process_count() > 1:
+        # a batch's tiles run on this process alone: across processes
+        # the statements' collectives must stay in one order
+        return None
     try:
         table = storage.table(tid)
     except Exception:
