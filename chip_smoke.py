@@ -95,6 +95,18 @@ port's paths end to end from SQL over a synthetic lineitem:
   bumps, member 0 re-shards from the persisted blocks and answers with
   parity; the time to recover from the kill.
 
+- the lint phase: the kernel family of `python -m tidb_tpu_torch.lint`
+  on the card (`tidb_tpu_torch/lint/kernelcheck.py`): every canonical
+  program (the per-tile programs, the whole-fragment mesh programs hot
+  and cold, the MPP exchange, tree and grouped programs, the batched
+  program, K1 and K2) runs once on canonical inputs under the op
+  recorder, against the `cuda` section of the port's lint baseline: a
+  failed program, an op sequence that moves with operand values or
+  context, a ProgramCache entry or nvcc build on a re-run of the corpus,
+  int64 ops past the baseline, or K1/K2 unequal to their plain versions
+  fails the run; each program's ops, int64 ops and K1/K2 launches are
+  printed.
+
 The fused program's rows per dispatch chunk are fixed at CHUNK_ROWS
 (`TIDB_TPU_DISPATCH_CHUNK_ROWS`): the port's own budget learns rows/ms
 from every earlier dispatch of the process, so each cell's chunking
@@ -114,8 +126,9 @@ card's name and power limit, and as the last line
 no CUDA device is present, when the port is not importable, or when any
 phase fails.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --lint-only]
 
+`--lint-only` builds the kernels and runs the lint phase alone.
 `--profile` adds a torch.profiler breakdown of one steady Q1, Q6, ck1
 and ck2 in each deployment, of `sa` and `tn` hot, and of the join,
 MPP and per-tile cells (mA10; q3, sj, mC, mE, t3, t5, t10, tsj; q3p
@@ -3071,6 +3084,60 @@ def fleet_worker(argv) -> int:
     raise SystemExit(f"unknown fleet worker {kind}")
 
 
+# ---------------------------------------------------------------------------
+# the lint phase: the kernel family of the port's lint on the card
+# ---------------------------------------------------------------------------
+
+def lint_phase() -> dict:
+    """The canonical program corpus of `tidb_tpu_torch.lint.kernelcheck`
+    on the card, against the `cuda` section of the lint baseline.  Fails
+    on any finding.  `launches` counts K1 and K2 in the programs of the
+    path (the kernels' own parity calls, `cuda-*`, are comparisons and do
+    not count)."""
+    from tidb_tpu_torch.lint.baseline import kernel_stats, load_baseline
+    from tidb_tpu_torch.lint.kernelcheck import (CUDA_KERNELS, compare_stats,
+                                                 measure_kernels)
+
+    t0 = time.perf_counter()
+    stats, findings = measure_kernels("cuda")
+    findings += compare_stats(stats, kernel_stats(load_baseline(), "cuda"))
+    wall = time.perf_counter() - t0
+    for name, st in stats.items():
+        if name != "__signatures__":
+            log(f"lint {name}: ops {st['ops']}, i64_ops {st['i64_ops']}, "
+                f"K1 {st['k1']}, K2 {st['k2']}")
+    log(f"lint: corpus ProgramCache entries "
+        f"{stats['__signatures__']['max']}; {len(findings)} finding(s); "
+        f"phase {wall:.1f} s")
+    log("lint stats: " + json.dumps(stats, sort_keys=True))
+    if findings:
+        raise AssertionError("lint: " + "; ".join(
+            f.render() for f in findings[:8]))
+    path = [st for n, st in stats.items()
+            if n not in CUDA_KERNELS and n != "__signatures__"]
+    return {"lint": {"launches": {
+        "remap_codes": sum(st["k1"] for st in path),
+        "unpack_codes": sum(st["k2"] for st in path)},
+        "wall_s": wall, "stats": stats}}
+
+
+def lint_only(card: str) -> int:
+    """`--lint-only`: build the kernels and run the lint phase alone."""
+    import torch
+
+    from tidb_tpu_torch.copr.cuda import build_all
+
+    log(f"kernel build: {build_all()}")
+    lint = lint_phase()
+    print(json.dumps({"lint": lint["lint"]["launches"],
+                      "stats": lint["lint"]["stats"]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def kernel_entry(name: str, launches: int, on_path: list,
                  pick_from: list) -> dict:
     """One kernel's entry of the `kernels` line: the numbers measured on
@@ -3121,6 +3188,8 @@ def main(argv) -> int:
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
         f", count {torch.cuda.device_count()}")
     ops.use_device("cuda")
+    if "--lint-only" in argv:
+        return lint_only(card)
     os.environ["TIDB_TPU_DISPATCH_CHUNK_ROWS"] = str(CHUNK_ROWS)
 
     t0 = time.perf_counter()
@@ -3261,6 +3330,9 @@ def main(argv) -> int:
     s1["fl_dense"] = fl["fl"]["cells"]["fl_dense"]
     fleet = mh_phase(want, s1)
     fleet.update(dp_phase(want))
+    # the lint phase last: its epoch guard bumps the membership epoch
+    reset_device_state()
+    lint = lint_phase()
     # the S = 1 cells' calls a K2 input (bits, n): they pick the
     # headline input of the kernels line, as before the mesh cells
     s1_k2 = {}
@@ -3288,7 +3360,7 @@ def main(argv) -> int:
     cells = (list(hot.values()) + list(cold.values()) + list(q18.values())
              + list(ma10.values()) + list(mesh.values())
              + list(joins.values()) + list(fl.values())
-             + list(fleet.values()))
+             + list(fleet.values()) + list(lint.values()))
     k1_launches = sum(r["launches"]["remap_codes"] for r in cells)
     k2_launches = sum(r["launches"]["unpack_codes"] for r in cells)
     # the launches of the mesh cells alone (S = MESH_S, and mA10 at
@@ -3342,6 +3414,8 @@ def main(argv) -> int:
         if any(not v for v in entry["fleet_launches"].values()):
             raise AssertionError(f"{entry['name']}: fleet launches "
                                  f"{entry['fleet_launches']}")
+    for entry, key in ((k1, "remap_codes"), (k2, "unpack_codes")):
+        entry["lint_launches"] = lint["lint"]["launches"][key]
     kernels = {"kernels": [k1, k2]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)

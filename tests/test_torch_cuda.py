@@ -239,3 +239,19 @@ def test_two_processes_share_the_card_over_gloo(card):
     outs = [p.communicate(timeout=300)[0] for p in procs]
     for p, out in zip(procs, outs):
         assert p.returncode == 0 and "TWO_PROCS_OK" in out, out[-3000:]
+
+
+@pytest.mark.cuda
+def test_kernel_family_on_card_is_clean_against_the_cuda_baseline(card):
+    """The lint's kernel family on the card: every canonical program runs,
+    K1 and K2 equal their plain versions, no op sequence moves with
+    operand values or context, a re-run of the corpus adds no program
+    and starts no nvcc build, and no program's int64 ops grow past the
+    baseline's `cuda` section."""
+    from tidb_tpu_torch.lint.baseline import kernel_stats, load_baseline
+    from tidb_tpu_torch.lint.kernelcheck import lint_kernels
+
+    base = kernel_stats(load_baseline(), "cuda")
+    assert base, "the lint baseline has no cuda section"
+    findings = lint_kernels(baseline_kernels=base, device="cuda")
+    assert not findings, "\n".join(f.render() for f in findings)

@@ -4,10 +4,13 @@ In a fresh interpreter (this one has imported jax already, through
 conftest), importing `tidb_tpu_torch`, its MPP engine
 (`tidb_tpu_torch.mpp`, with the join-tree engine), its serving path
 (`tidb_tpu_torch.server`, `.serving.batcher`, `tidb_tpu_torch.__main__`),
-its coordination and data planes (`.coord`, `.dataplane`), creating a Domain and running Q6 must leave neither `jax` nor any
-`tidb_tpu.` module loaded; and a scan of every source file under
-`tidb_tpu_torch/` and of the port's multi-process workers finds no
-import of either and no Pallas.
+its coordination and data planes (`.coord`, `.dataplane`), its static
+analysis (every module of `tidb_tpu_torch.lint`) and the canonical
+exchange programs (`.mpp.exchange`), creating a Domain and running Q6
+must leave neither `jax` nor any `tidb_tpu.` module loaded; and a scan
+of every source file under `tidb_tpu_torch/`, of the port's
+multi-process workers and of `chip_smoke.py` finds no import of either
+and no Pallas.
 """
 
 import ast
@@ -34,6 +37,16 @@ import tidb_tpu_torch.serving.batcher
 import tidb_tpu_torch.__main__
 import tidb_tpu_torch.coord
 import tidb_tpu_torch.dataplane
+import tidb_tpu_torch.mpp.exchange
+import tidb_tpu_torch.lint
+import tidb_tpu_torch.lint.__main__
+import tidb_tpu_torch.lint.baseline
+import tidb_tpu_torch.lint.chaoscover
+import tidb_tpu_torch.lint.concur
+import tidb_tpu_torch.lint.kernelcheck
+import tidb_tpu_torch.lint.metricnames
+import tidb_tpu_torch.lint.plancheck
+import tidb_tpu_torch.lint.purity
 from tidb_tpu_torch import ops
 ops.use_device("cpu")
 from tidb_tpu_torch.tpch_data import LINEITEM_Q6, build_lineitem

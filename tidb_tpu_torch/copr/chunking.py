@@ -18,13 +18,21 @@ latency histograms (`dispatch_chunk_<kind>_ms` / `_rows`, fed back by
 plane uses), falling back to a flat rows-per-ms heuristic until the
 first observations land.
 
+A fragment that carries a float SUM or AVG takes the fixed budget
+FLOAT_CHUNK_ROWS instead: the host adds the chunks' float partials in
+chunk order, so chunk edges learned from the statements the process ran
+before would move the sum's bits.  With a fixed budget its edges, and
+so its float sums, depend on the statement, the table and its regions
+alone (the JAX package keeps the learned budget for every fragment).
+
 Knobs:
 
 - ``tidb_tpu_dispatch_chunk_ms`` sysvar / ``TIDB_TPU_DISPATCH_CHUNK``
   env: target device ms per chunk; 0 disables chunking entirely (the
   bench comparator: one dispatch per fragment).
 - ``TIDB_TPU_DISPATCH_CHUNK_ROWS``: direct rows-per-chunk override for
-  deterministic tests (bypasses the latency estimate).
+  deterministic tests (bypasses the latency estimate and the fixed
+  float budget).
 - ``TIDB_TPU_CHUNK_ROWS_PER_MS``: the cold-start throughput guess.
 """
 
@@ -41,6 +49,12 @@ CHUNK_KINDS = ("filter", "agg", "topn", "tile", "mpp", "batch")
 #: never chunk below this many rows: a mis-estimated throughput must
 #: degrade into a few extra launches, not thousands of tiny ones
 MIN_CHUNK_ROWS = 1024
+
+#: rows per dispatch chunk of a fragment with a float SUM or AVG.  At the
+#: H100's measured scan rate (TPC-H Q1 at SF10: 60 M rows in ~66 ms on
+#: the card) a chunk is ~18 ms of device time, inside the default
+#: 100 ms target; its widened f64 column is 128 MiB on the card.
+FLOAT_CHUNK_ROWS = 1 << 24
 
 # process-wide override installed by `SET tidb_tpu_dispatch_chunk_ms`
 # (None = fall through to the env / default)
@@ -81,8 +95,10 @@ def _rows_per_ms(kind: str) -> float:
         return 8192.0
 
 
-def chunk_budget_rows(kind: str) -> int:
-    """Rows per chunk for `kind`; 0 = chunking disabled."""
+def chunk_budget_rows(kind: str, fixed: bool = False) -> int:
+    """Rows per chunk for `kind`; 0 = chunking disabled.  `fixed` (a
+    fragment with a float SUM or AVG) takes FLOAT_CHUNK_ROWS instead of
+    the learned rows/ms."""
     rows_env = os.environ.get("TIDB_TPU_DISPATCH_CHUNK_ROWS")
     if rows_env:
         try:
@@ -93,6 +109,8 @@ def chunk_budget_rows(kind: str) -> int:
     ms = dispatch_chunk_ms()
     if ms <= 0:
         return 0
+    if fixed:
+        return FLOAT_CHUNK_ROWS
     return max(int(ms * _rows_per_ms(kind)), MIN_CHUNK_ROWS)
 
 

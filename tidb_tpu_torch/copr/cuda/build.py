@@ -24,19 +24,30 @@ import os
 import re
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+from ...util_concurrency import make_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_mu = threading.Lock()
+#: one build at a time: held across the nvcc processes and the rename of
+#: their outputs, so two threads never compile the same source
+_mu = make_lock("copr.cuda.build:_mu")
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, str] = {}  # name -> nvcc's output of a build in this process
+_RUNS = [0]  # nvcc processes started in this process
+
+
+def nvcc_runs() -> int:
+    """How many nvcc processes this process has started (the lint's
+    recompile guard: a second run of its corpus must start none)."""
+    with _mu:
+        return _RUNS[0]
 
 
 def sources() -> Dict[str, Path]:
@@ -77,6 +88,7 @@ def build_all() -> Dict[str, float]:
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
+            _RUNS[0] += 1
             todo[name] = (proc, tmp, out, time.perf_counter())
         failed = []
         for name, (proc, tmp, out, t0) in todo.items():

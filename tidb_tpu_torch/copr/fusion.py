@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -54,6 +53,7 @@ import torch
 
 from .. import ops
 from ..store.fault import FAILPOINTS
+from ..util_concurrency import make_lock
 from .ir import DAG
 from .torch_eval import DeviceUnsupported, compile_expr
 
@@ -322,7 +322,7 @@ def _single_dict_column(expr, scan, table, cols=None):
     return idx
 
 
-_REMAP_MU = threading.Lock()
+_REMAP_MU = make_lock("copr.fusion:_REMAP_MU")
 #: (store_uid, base_version, expr json) -> KeyRemap (or a predicate's
 #: code set); the host pays the per-dictionary evaluation ONCE per base
 #: version, not once per query.  Bounded: superseded base versions purge
@@ -784,3 +784,84 @@ def run_fragment(table, dag: DAG, start: int, end: int, deleted,
         note_split(plan.reason_label, type(plan.tail[0]).__name__)
         chunks = run_tail(dag, plan.tail, chunks, aux)
     return chunks
+
+
+# ---------------------------------------------------------------------------
+# lint kernelcheck: run whole-fragment mesh programs on canonical inputs
+# ---------------------------------------------------------------------------
+
+
+def trace_fused_fragment(table, dag, n_ranges: int = 1, cold: bool = False,
+                         dict_shift: int = 0):
+    """Run the whole-fragment MESH program of `parallel._build_mesh_core`
+    for one shard of TILE rows on the current device, once, on canonical
+    zero inputs under the lint's op recorder; returns its OpTrace (the
+    fused-fragment corpus of lint.kernelcheck).  The operands are what
+    `parallel._run_mesh_once` hands the program: each column in its wire
+    dtype, no validity tensor (the canonical table has no NULL), the
+    hoisted predicate parameters, and `n_ranges` range slots.  Raises
+    DeviceUnsupported when the fragment has no fused mesh form.
+
+    `cold=True` runs the cold-tier layout class: every packable scan
+    column rides as bit-packed codes that unpack through K2, its decode
+    operand (the range bias, or the dictionary values) shifted by
+    `dict_shift` — two shifts must run the IDENTICAL op sequence (layout
+    values are runtime operands, never program shape)."""
+    from ..lint.kernelcheck import trace_program
+    from ..serving import hoist_conds
+    from . import parallel as par
+    from . import torch_engine as te
+
+    dag = DAG.from_dict(dag.to_dict())
+    plan = plan_regions(dag, table)
+    if plan.tail:
+        raise DeviceUnsupported(
+            plan.split_reason or "no whole-fragment fused form")
+    an = plan.an
+    kind = "agg" if an.agg is not None else (
+        "topn" if an.topn is not None else "filter")
+    col_order = an.needed_cols()
+    tile = te.TILE
+    dev = ops.device()
+    datas, valids, col_layout, lvals = [], [], [], []
+    for ci in col_order:
+        store_ci = an.scan.columns[ci]
+        info = None
+        if cold:
+            from ..layout.coldtier import dict_values, pack_info
+
+            info = pack_info(table, store_ci)
+        valids.append(None)
+        if info is not None:
+            datas.append(torch.zeros((1, tile // (8 // info.bits)),
+                                     dtype=torch.uint8, device=dev))
+            col_layout.append((info.bits, info.cap, info.kind))
+            dt = par.torch_dtype(par._full_dtype(
+                table.cols[store_ci].ftype.kind))
+            if info.kind == "range":
+                lvals.append(torch.tensor(info.lo + dict_shift, dtype=dt,
+                                          device=dev))
+            else:
+                dv = dict_values(table, store_ci, info)
+                lvals.append(torch.from_numpy(dv).to(dev) + dict_shift)
+        else:
+            datas.append(torch.zeros(
+                (1, tile), device=dev,
+                dtype=par.torch_dtype(par._wire_dtype(table, store_ci))))
+            col_layout.append(None)
+    if cold and not any(col_layout):
+        raise DeviceUnsupported("no cold-packable column in fragment")
+    # computed-key remap operands ride the lvals tail AFTER the cold
+    # dictionary operands (the ordering _run_mesh_once hands them in)
+    for r in (an.key_remaps or ()):
+        if r is not None:
+            lvals.append(r.on_device(dev))
+    hoisted = hoist_conds(an)
+    params = None if hoisted is None else tuple(
+        torch.from_numpy(h).to(dev) for h in hoisted)
+    core = par._build_mesh_core(an, kind, col_order, tile,
+                                col_layout=col_layout if cold else None)
+    del_mask = torch.ones((1, tile), dtype=torch.bool, device=dev)
+    bounds = [(r * 8, r * 8 + 8) for r in range(n_ranges)]
+    return trace_program(core, datas, valids, del_mask, bounds,
+                         tuple(lvals), (), params, 0)[1]

@@ -992,10 +992,15 @@ def _span_of(bounds) -> Tuple[int, int]:
 
 def _mesh_masks(del_mask, bounds, lo: int, hi: int):
     """Live-row mask over rows [lo, hi): the union of the range slots'
-    [start, end) clips, ANDed with the deletion mask."""
+    [start, end) clips, ANDed with the deletion mask.  Every one of the
+    MESH_RANGE_SLOTS slots is written, the unused ones as empty spans,
+    so the program's op sequence does not depend on the range count."""
     m = torch.zeros(hi - lo, dtype=torch.bool, device=del_mask.device)
-    for s, e in bounds:
-        m[s - lo: e - lo] = True
+    pad = [(lo, lo)] * (MESH_RANGE_SLOTS - len(bounds))
+    for s, e in list(bounds) + pad:
+        # narrow, not a slice assignment: a slot that covers the whole
+        # span would skip the slice op and change the op sequence
+        m.narrow(0, s - lo, e - s).fill_(True)
     return m & del_mask.reshape(-1)[lo:hi]
 
 
@@ -1871,8 +1876,12 @@ def _run_mesh_once(storage, req: CopRequest, tid: int,
         # across chunks: sort-agg chunks are root-merged partials, dense
         # agg accumulates via _merge_mesh_agg, TopN keeps every chunk's
         # candidates for the host's final pick
+        # a float SUM/AVG takes the fixed budget: its chunk edges, and
+        # the order the host adds the float partials in, then depend on
+        # the statement alone, not on what the process ran before
         sub_bounds = chunk_bounds(
-            bounds, ops.agree(chunk_budget_rows(kind), op="chunk budget"),
+            bounds, ops.agree(chunk_budget_rows(
+                kind, fixed=_has_float_sum(an)), op="chunk budget"),
             MESH_RANGE_SLOTS)
         n_chunks = len(sub_bounds)
 
@@ -2051,6 +2060,14 @@ def _delta_chunk(req, dag, an, inserted) -> Optional[Chunk]:
 def _eval_to_column(expr, chunk: Chunk) -> Column:
     v = expr.eval(chunk)
     return Column(expr.ftype, v.data, v.validity())
+
+
+def _has_float_sum(an: _Analyzed) -> bool:
+    """True when the fragment aggregates a float SUM or AVG, whose
+    chunk partials the host adds in floating point."""
+    return an.agg is not None and any(
+        a.name in ("sum", "avg") and a.ftype.kind == TypeKind.FLOAT
+        for a in an.agg.aggs)
 
 
 def _mesh_over_partitions(storage, req: CopRequest, tids):

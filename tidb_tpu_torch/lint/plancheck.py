@@ -626,7 +626,7 @@ def lint_canonical_plans() -> List[Finding]:
             problems = [f"planning raised {type(e).__name__}: {e}"]
         for msg in problems:
             findings.append(Finding(
-                rule="plan-schema", path="tidb_tpu/planner",
+                rule="plan-schema", path="tidb_tpu_torch/planner",
                 line=0, scope=f"canonical-q{qi}", token="plan",
                 message=f"{msg} (query: {sql[:60]}...)"))
     return findings

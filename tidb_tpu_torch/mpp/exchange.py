@@ -244,3 +244,283 @@ def expand_matches(sbk, bord, nb, probe_keys, probe_emit, probe_match_ok,
     bpos = torch.clamp(lo[src] + j, 0, sbk.shape[0] - 1)
     out_valid = t < total
     return src, bord[bpos], out_valid, matched & out_valid, overflow
+
+
+# ---------------------------------------------------------------------------
+# lint kernelcheck: the canonical exchange programs (tidb_tpu's
+# mpp/exchange.py:196-464), run once under the op recorder
+# ---------------------------------------------------------------------------
+
+
+def _canonical_join_fn(S: int, cap: int, n_local: int, mode: str):
+    """The canonical partition -> exchange -> local-join program shape
+    the lint kernelcheck runs (no tables, no engine state): one int64 key
+    + one f64 payload per side, inner-join semantics with the production
+    two-pass count+emit expansion (non-unique build keys).  Every
+    argument holds one tensor a shard."""
+    cap_out = S * cap if mode == "shuffle" else n_local
+
+    def shard_fn(pk, pm, bk, bm, pv):
+        if mode == "shuffle":
+            (rbk, rbv), b_ok, b_over = shuffle(
+                [(bk[s], pv[s]) for s in range(S)], bm, bk, cap)
+            (rpk,), p_ok, p_over = shuffle(
+                [(pk[s],) for s in range(S)], pm, pk, cap)
+        else:  # broadcast
+            rbk = replicate([torch.where(bm[s], bk[s],
+                                         torch.full_like(bk[s], I64_MAX))
+                             for s in range(S)])
+            rbv = replicate(pv)
+            b_ok = replicate(bm)
+            rpk, p_ok = list(pk), list(pm)
+            b_over = p_over = torch.zeros((), dtype=torch.int64,
+                                          device=pk[0].device)
+        matched, payload, j_over = [], [], []
+        for s in range(S):
+            sbk, bord, nb = sorted_build(rbk[s], b_ok[s])
+            _src, bidx, _ov, m, jo = expand_matches(
+                sbk, bord, nb, rpk[s], p_ok[s], p_ok[s], cap_out, False)
+            matched.append(m)
+            payload.append(torch.where(m, rbv[s][bidx],
+                                       torch.zeros_like(rbv[s][bidx])))
+            j_over.append(jo)
+        return b_over + p_over, ops.psum(j_over), matched, payload
+
+    return shard_fn
+
+
+#: canonical join-kernel shape (S, cap, n_local)
+_JOIN_KERNEL_SHAPE = (1, 64, 256)
+
+
+def trace_exchange_kernel(mode: str = "shuffle"):
+    """The canonical exchange join at S = 1 on the current device, run
+    once on zero keys under the lint's op recorder; returns its OpTrace
+    (lint.kernelcheck)."""
+    from ..lint.kernelcheck import trace_program
+
+    S, cap, n_local = _JOIN_KERNEL_SHAPE
+    dev = ops.device()
+    args = (
+        [torch.zeros(n_local, dtype=torch.int64, device=dev)],
+        [torch.ones(n_local, dtype=torch.bool, device=dev)],
+        [torch.zeros(n_local, dtype=torch.int64, device=dev)],
+        [torch.ones(n_local, dtype=torch.bool, device=dev)],
+        [torch.zeros(n_local, dtype=torch.float64, device=dev)],
+    )
+    return trace_program(_canonical_join_fn(S, cap, n_local, mode),
+                         *args)[1]
+
+
+def _canonical_tree_fn(S: int, cap: int, n_local: int, cap_out: int):
+    """The canonical 3-way rung-ladder program shape (mpp/jointree.py):
+    rung 0 joins base(key a, payload) against side B (key a -> key b
+    mapping), rung 1 joins the DEVICE-RESIDENT intermediate against side
+    C (key b, measure) — both rungs in ONE program, so kernelcheck
+    guards the whole ladder's int64 census.  Operand SHIFTS (the caller
+    adds a constant to every key column) must run the IDENTICAL op
+    sequence: key values are runtime data, never program shape.  Every
+    argument holds one tensor a shard."""
+
+    def one_rung(pk, pm, slots, bk, bm, b_payload):
+        (rbk, rbv), b_ok, b_over = shuffle(
+            [(bk[s], b_payload[s]) for s in range(S)], bm, bk, cap)
+        parrs = [tuple([pk[s]] + [a[s] for pair in slots for a in pair])
+                 for s in range(S)]
+        recv, p_ok, p_over = shuffle(parrs, pm, pk, cap)
+        out_slots = [([None] * S, [None] * S) for _ in range(len(slots) + 1)]
+        keep, j_over = [None] * S, []
+        for s in range(S):
+            sbk, bord, nb = sorted_build(rbk[s], b_ok[s])
+            src, bidx, out_valid, matched, jo = expand_matches(
+                sbk, bord, nb, recv[0][s], p_ok[s], p_ok[s], cap_out,
+                False)
+            for i in range(len(slots)):
+                out_slots[i][0][s] = recv[1 + 2 * i][s][src]
+                out_slots[i][1][s] = recv[2 + 2 * i][s][src]
+            out_slots[-1][0][s] = rbv[s][bidx]
+            out_slots[-1][1][s] = matched
+            keep[s] = out_valid & matched
+            j_over.append(jo)
+        return out_slots, keep, p_over + b_over, ops.psum(j_over)
+
+    def shard_fn(ak, av, bk_a, bk_b, bm, ck, cv, cm):
+        ones = [torch.ones_like(a, dtype=torch.bool) for a in ak]
+        # rung 0: base(a_key, a_payload) ⋈ B(a_key -> b_key)
+        slots0, keep0, ov0, jo0 = one_rung(ak, ones, [(av, ones)], bk_a,
+                                           bm, bk_b)
+        # rung 1: intermediate(b_key) ⋈ C(b_key, measure) — the
+        # intermediate tensors feed straight in, no host boundary
+        bkey = [k.to(torch.int64) for k in slots0[1][0]]
+        mask1 = [k & m for k, m in zip(keep0, slots0[1][1])]
+        slots1, keep1, ov1, jo1 = one_rung(bkey, mask1, slots0, ck, cm, cv)
+        total = ops.psum([
+            (torch.where(keep1[s], slots1[0][0][s],
+                         torch.zeros_like(slots1[0][0][s]))
+             * torch.where(keep1[s], slots1[-1][0][s],
+                           torch.zeros_like(slots1[-1][0][s]))).sum()
+            for s in range(S)])
+        return ov0 + ov1, jo0 + jo1, keep1, total
+
+    return shard_fn
+
+
+#: canonical tree-kernel shape (S, cap, n_local, cap_out) — one source
+#: for the program AND the numpy oracle's input size, so a retune can
+#: never make executed parity compare different row counts
+_TREE_KERNEL_SHAPE = (1, 256, 64, 1024)
+
+
+def _tree_kernel_fn():
+    """The canonical 3-way ladder at S = 1 — shared by
+    trace_tree_join_kernel and run_tree_join_kernel so the traced op
+    sequence and the executed result can never diverge on shape
+    constants.  Returns (fn, n_local)."""
+    S, cap, n_local, cap_out = _TREE_KERNEL_SHAPE
+    return _canonical_tree_fn(S, cap, n_local, cap_out), n_local
+
+
+def _tree_kernel_args(n_local: int, shift: int = 0):
+    rng = np.random.default_rng(5)
+    ak = rng.integers(0, 16, n_local).astype(np.int64) + shift
+    av = rng.uniform(0, 1, n_local)
+    bk_a = rng.integers(0, 16, n_local).astype(np.int64) + shift
+    bk_b = rng.integers(0, 8, n_local).astype(np.int64) + shift
+    bm = rng.random(n_local) < 0.5
+    ck = rng.integers(0, 8, n_local).astype(np.int64) + shift
+    cv = rng.uniform(0, 1, n_local)
+    cm = rng.random(n_local) < 0.8
+    # host numpy: the program's callers copy to the device, the oracle
+    # reads them directly
+    return (ak, av, bk_a, bk_b, bm, ck, cv, cm)
+
+
+def _on_device(arrays):
+    """One shard's list per host array, on the current device."""
+    dev = ops.device()
+    return [[torch.from_numpy(np.ascontiguousarray(a)).to(dev)]
+            for a in arrays]
+
+
+def trace_tree_join_kernel(shift: int = 0):
+    """The canonical 3-way ladder at S = 1 on the current device, run once
+    under the lint's op recorder; `shift` offsets every key operand —
+    lint.kernelcheck runs two shifts and requires identical op
+    sequences (key VALUES must never shape the ladder).  Returns the
+    OpTrace."""
+    from ..lint.kernelcheck import trace_program
+
+    fn, n_local = _tree_kernel_fn()
+    return trace_program(
+        fn, *_on_device(_tree_kernel_args(n_local, shift)))[1]
+
+
+def run_tree_join_kernel(shift: int = 0):
+    """Execute the canonical ladder (S = 1) and return (partition
+    overflow, emit overflow, total) — kernelcheck compares the total
+    against the numpy oracle (`tree_join_oracle`)."""
+    fn, n_local = _tree_kernel_fn()
+    over, jover, _keep, total = fn(
+        *_on_device(_tree_kernel_args(n_local, shift)))
+    return int(over), int(jover), float(total)
+
+
+def tree_join_oracle(shift: int = 0) -> float:
+    """Numpy reference for run_tree_join_kernel: the same 3-way join
+    evaluated row-at-a-time on the host."""
+    n_local = _TREE_KERNEL_SHAPE[2]
+    ak, av, bk_a, bk_b, bm, ck, cv, cm = _tree_kernel_args(n_local, shift)
+    total = 0.0
+    for i in range(n_local):
+        for j in range(n_local):
+            if not bm[j] or bk_a[j] != ak[i]:
+                continue
+            for k in range(n_local):
+                if cm[k] and ck[k] == np.int64(bk_b[j]):
+                    total += av[i] * cv[k]
+    return float(total)
+
+
+class _CanonArg:
+    """Minimal expression stand-in for the canonical grouped kernel:
+    grouped_partial_states only reads `.args[0].ftype` and calls the
+    arg_fn closure, which ignores the expression object."""
+
+    def __init__(self, ftype):
+        self.ftype = ftype
+
+
+def _canonical_grouped_fn(S: int, cap_out: int, cap_g: int):
+    """Canonical grouped-partial + on-device-merge program: one int64
+    group key + one f64 measure over cap_out joined rows — per-shard
+    sort-group into cap_g slots, all_gather of the compacted
+    (key, state) rows, second sort-merge, per-shard slice emission.
+    The group BUDGET is a runtime scalar tensor: kernelcheck asserts the
+    op sequence is IDENTICAL across budget values.  Every argument but
+    the budget holds one tensor a shard."""
+    from ..copr.fusion import (grouped_partial_states,
+                               merge_grouped_partials,
+                               sort_group_segments)
+    from ..expr.aggregation import AggDesc
+    from ..types import FieldType, TypeKind
+
+    f64 = FieldType(TypeKind.FLOAT)
+    aggs = [AggDesc("count", [], False, FieldType(TypeKind.INT)),
+            AggDesc("sum", [_CanonArg(f64)], False, f64)]
+    gchunk = cap_g // S
+
+    def shard_fn(gk, gv, meas, mm, gbudget):
+        keys, oks, states, over_l = [], [], [], []
+        for s in range(S):
+            key_bits = [torch.where(gv[s], gk[s], torch.zeros_like(gk[s]))]
+            key_flags = [gv[s].to(torch.int64)]
+            order, sm, skeys, seg, pos, n_uniq = sort_group_segments(
+                key_bits, key_flags, mm[s], cap_g)
+            states.append(grouped_partial_states(
+                aggs, lambda e, s=s: (meas[s], mm[s]), order, sm, seg,
+                cap_g))
+            keys.append([k[pos] for k in skeys])
+            over_l.append(torch.clamp(n_uniq - gbudget, min=0))
+            oks.append(torch.arange(cap_g, dtype=torch.int64,
+                                    device=gk[s].device)
+                       < torch.clamp(n_uniq, max=cap_g))
+        g_keys = [replicate([k[i] for k in keys]) for i in range(2)]
+        g_ok = replicate(oks)
+        g_cnt = replicate([st[0] for st in states])
+        g_sum = replicate([st[1][0] for st in states])
+        g_sc = replicate([st[1][1] for st in states])
+        out = []
+        for s in range(S):
+            mn_uniq, m_keys, m_states = merge_grouped_partials(
+                aggs, [g_keys[0][s]], [g_keys[1][s]], g_ok[s],
+                [g_cnt[s], (g_sum[s], g_sc[s])], cap_g)
+            lo = s * gchunk
+            out.append((torch.clamp(mn_uniq - gbudget, min=0).reshape(1),
+                        mn_uniq.reshape(1),
+                        tuple(k[lo:lo + gchunk] for k in m_keys),
+                        (m_states[0][lo:lo + gchunk],
+                         tuple(x[lo:lo + gchunk] for x in m_states[1]))))
+        return ops.psum(over_l), out
+
+    return shard_fn
+
+
+def trace_grouped_agg_kernel(budget: int = 7):
+    """The canonical grouped-partial + merge program at S = 1 on the
+    current device, run once under the lint's op recorder; `budget`
+    rides the runtime scalar tensor — lint.kernelcheck runs two budgets
+    and requires identical op sequences (the budget must never shape
+    the program).  Returns the OpTrace."""
+    from ..lint.kernelcheck import trace_program
+
+    S, cap_out, cap_g = 1, 256, 32
+    dev = ops.device()
+    args = (
+        [torch.zeros(cap_out, dtype=torch.int64, device=dev)],
+        [torch.ones(cap_out, dtype=torch.bool, device=dev)],
+        [torch.zeros(cap_out, dtype=torch.float64, device=dev)],
+        [torch.ones(cap_out, dtype=torch.bool, device=dev)],
+        torch.tensor(budget, dtype=torch.int64, device=dev),
+    )
+    return trace_program(_canonical_grouped_fn(S, cap_out, cap_g),
+                         *args)[1]

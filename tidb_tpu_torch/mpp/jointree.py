@@ -726,6 +726,8 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         annotate(groups=k, group_budget=budget)
         return _assemble_tree_grouped(spec, states, k, payload[0],
                                       payload[1], remaps=remaps)
+    # scalar partials: the pair engine's `_assemble_partials` builds the
+    # one partial row (the JAX package's `_assemble_tree_partials`)
     return _assemble_partials(spec.aggs, payload)
 
 
