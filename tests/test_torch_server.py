@@ -73,6 +73,9 @@ class MiniClient:
 
     async def query(self, sql: str):
         await self.command(0x03, sql.encode())
+        return await self.read_result()
+
+    async def read_result(self):
         first = await self.pr.recv()
         if first[0] == 0x00:  # OK
             affected, pos = read_lenenc_int(first, 1)
@@ -371,7 +374,9 @@ def test_status_lists_the_microbatch_program_cache():
 
 def test_python_m_serves_on_the_cpu_and_stops():
     """`python -m tidb_tpu_torch --engine cpu` boots a server that
-    answers `select 1` over the wire, and stops on SIGTERM."""
+    answers `select 1` over the wire, and stops on SIGTERM, also with a
+    client still connected: the drain closes that client's
+    connection."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     env["PYTHONUNBUFFERED"] = "1"
@@ -389,15 +394,21 @@ def test_python_m_serves_on_the_cpu_and_stops():
         async def body():
             cli = MiniClient(m.group(1), int(m.group(2)))
             await cli.connect()
+            stays = MiniClient(m.group(1), int(m.group(2)))
+            await stays.connect()
             r = await cli.query("select 1")
             await cli.close()
+            assert (await stays.query("select 2"))["rows"] == [("2",)]
+            proc.send_signal(signal.SIGTERM)
+            t0 = time.monotonic()
+            assert proc.wait(timeout=60) == 0
+            assert time.monotonic() - t0 < 60
+            # the drain closed the connection of the client that stayed
+            assert await stays.reader.read() == b""
+            stays.writer.close()
             return r
 
         assert run(body())["rows"] == [("1",)]
-        proc.send_signal(signal.SIGTERM)
-        t0 = time.monotonic()
-        assert proc.wait(timeout=60) == 0
-        assert time.monotonic() - t0 < 60
         assert "stopped" in proc.stdout.read()
     finally:
         if proc.poll() is None:

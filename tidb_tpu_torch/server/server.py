@@ -156,15 +156,19 @@ class MySQLServer:
            bounded by its own max_execution_time deadline);
         3. survivors are cancelled through their QueryScope with reason
            'shutdown' (ERR 1053 to the client at the next host seam);
-        4. connections close and the worker pool shuts down."""
+        4. connections close, the listener's wait_closed() returns and
+           the worker pool shuts down.
+
+        Step 1 only closes the listener: since Python 3.12.1
+        `asyncio.Server.wait_closed()` also waits for every open
+        connection, so it is awaited after step 4 has closed them."""
         self._draining = True
         if self._checkpoint_task is not None:
             self._checkpoint_task.cancel()
             self._checkpoint_task = None
-        if self._server is not None:
-            self._server.close()
-            await self._server.wait_closed()
-            self._server = None
+        listener, self._server = self._server, None
+        if listener is not None:
+            listener.close()
         loop = asyncio.get_running_loop()
         deadline = loop.time() + max(drain_s, 0.0)
         while loop.time() < deadline:
@@ -233,6 +237,13 @@ class MySQLServer:
         tasks = list(self._conns)
         if tasks:
             await asyncio.wait(tasks, timeout=5.0)
+        if listener is not None:
+            # bounded like the handler wait: a connection whose handler
+            # did not unwind must not hold the drain open
+            try:
+                await asyncio.wait_for(listener.wait_closed(), timeout=5.0)
+            except asyncio.TimeoutError:
+                pass
         self.pool.shutdown(wait=False)
 
     # ------------------------------------------------------------------
