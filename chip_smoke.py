@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the sources in this checkout
-(K1 `remap_codes` and K2 `unpack_codes`, one nvcc each, concurrently;
-ptxas's registers and spills per kernel are printed), holds each against
-its plain PyTorch version on the card and times it (K2 in both forms:
+(K1 `remap_codes`, K2 `unpack_codes` and K3 `dense_agg`, one nvcc each,
+concurrently; ptxas's registers and spills per kernel are printed),
+holds K1 and K2 against their plain PyTorch versions on the card and
+times them (K2 in both forms:
 bare, and with the cold tier's range decode fused in by an int32 or
 int64 bias, beside the unfused sequence it replaces), then drives the
 port's paths end to end from SQL over a synthetic lineitem:
@@ -115,10 +116,14 @@ would depend on the cells run before it.
 Rows are checked against a plain numpy computation over the generator's
 own arrays, and Q1/Q6 at SF1 against the port's host engine.  Each
 cell's kernel launches are counted from zero; every input the path
-hands K1 and K2 is recorded, and each kernel is held against its plain
-version and timed again on those very inputs: the `kernels` line
+hands K1, K2 and K3 is recorded, and each kernel is held against its
+plain version and timed again on those very inputs: the `kernels` line
 reports the input (and for K2 the form) the path launched most, and
-the fleet workers' launches and inputs beside it.
+the fleet workers' launches and inputs beside it.  K3 takes every
+unbatched dense aggregation (Q1 and Q6 hot, cold, on the mesh, in the
+fleet's processes and in the serving passes): its inputs (n rows, K
+operands, G groups) are held against its plain version after each of
+those paths, and its entry gives each path's launches and inputs.
 
 Output: human-readable lines, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as the last line
@@ -627,6 +632,91 @@ def path_k1_phase(seen) -> list:
     return out
 
 
+def k3_tag(n: int, K: int, G: int) -> str:
+    return f"n={n} K={K} G={G}"
+
+
+def check_and_time_k3(args, flush) -> dict:
+    """K3 on one input (gidx, mask, values, valids, G): exact equality
+    with its plain version, the masked segment sums and counts it
+    replaced (raises otherwise), then the two timed in turns.  The
+    bound is the bytes K3 must read: the codes (none with one group),
+    the mask, and each operand's values and validity."""
+    import torch
+
+    from tidb_tpu_torch.copr.cuda import dense_agg, dense_agg_plain
+
+    gidx, mask, values, valids, G = args
+    n, K = mask.shape[0], len(valids)
+    got = dense_agg(*args)
+    want = dense_agg_plain(*args)
+    torch.cuda.synchronize()
+    tag = k3_tag(n, K, G)
+    if got.shape != (1 + 2 * K, G) or got.dtype != torch.int64:
+        raise AssertionError(f"dense_agg {tag}: {tuple(got.shape)} "
+                             f"{got.dtype}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"dense_agg {tag}: {int((got != want).sum())}"
+                             " states differ from the plain version")
+    nbytes = n * ((8 if G > 1 else 0) + 1
+                  + sum(1 if v is None else 9 for v in values))
+    r = time_turns({"ms": lambda: dense_agg(*args),
+                    "plain_ms": lambda: dense_agg_plain(*args)},
+                   flush=flush)
+    r.update({"n": n, "K": K, "G": G, "max_abs_err": 0, "bytes": nbytes,
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return r
+
+
+def record_dense_agg_inputs(seen=None):
+    """Route the path's K3 calls through a recorder: (n, K, G) ->
+    [calls, the first call's arguments], added to `seen` when given.
+    Returns (record, restore)."""
+    import tidb_tpu_torch.copr.cuda as kcuda
+
+    real = kcuda.dense_agg
+    seen = {} if seen is None else seen
+
+    def recorder(gidx, mask, values, valids, num_groups):
+        key = (int(mask.shape[0]), len(valids), num_groups)
+        rec = seen.setdefault(key, [0, (gidx, mask, list(values),
+                                        list(valids), num_groups)])
+        rec[0] += 1
+        return real(gidx, mask, values, valids, num_groups)
+
+    kcuda.dense_agg = recorder
+
+    def restore():
+        kcuda.dense_agg = real
+
+    return seen, restore
+
+
+def path_k3_phase(path: str, seen) -> list:
+    """K3 against its plain version on the inputs one path gave it, one
+    per (n, K, G): exact equality, timing there.  Empties `seen` (the
+    inputs hold device memory)."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8,
+                        device=torch.device("cuda"))
+    out = []
+    for (n, K, G), (calls, args) in sorted(seen.items()):
+        r = check_and_time_k3(args, flush)
+        r.update({"path": path, "calls": calls})
+        out.append(r)
+        log(f"K3 on the {path} path's input {k3_tag(n, K, G)} ({calls} "
+            f"calls): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of it), exact")
+    seen.clear()
+    del flush
+    torch.cuda.empty_cache()
+    if not out:
+        raise AssertionError(f"{path}: no dense_agg input was recorded")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # independent reference: numpy over the generator's arrays
 # ---------------------------------------------------------------------------
@@ -889,11 +979,27 @@ def engines(sess, sql):
 
 def _kernel_counts():
     """The kernels' own wrappers, which hold the launch counts (the
-    recorders below stand in front of them)."""
+    recorders below stand in front of them): K1, K2, K3."""
+    from tidb_tpu_torch.copr.cuda.dense_agg import dense_agg
     from tidb_tpu_torch.copr.cuda.remap import remap_codes
     from tidb_tpu_torch.copr.cuda.unpack import unpack_codes
 
-    return remap_codes, unpack_codes
+    return remap_codes, unpack_codes, dense_agg
+
+
+def zero_launches():
+    for fn in _kernel_counts():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since `zero_launches`, by its name."""
+    return {fn.__name__: fn.launches for fn in _kernel_counts()}
+
+
+def no_k12(launches: dict) -> bool:
+    """Neither K1 nor K2 launched (K3 takes every dense aggregation)."""
+    return not launches["remap_codes"] and not launches["unpack_codes"]
 
 
 def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
@@ -902,11 +1008,10 @@ def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
     where the query orders them) and the scan must report
     `engine:mesh`.  K1's and K2's launch counts are set
     to 0 just before each query's runs and read just after."""
-    k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
     for name, sql in queries:
-        k1.launches = k2.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         rows = sess.query(sql)
         first = time.perf_counter() - t0
@@ -919,8 +1024,7 @@ def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
                 raise AssertionError(f"{label} {name}: rows changed "
                                      "between runs")
         eng = engines(sess, sql)
-        launches = {"remap_codes": k1.launches,
-                    "unpack_codes": k2.launches}
+        launches = launch_counts()
         if not eng or not all("engine:mesh" in e for e in eng):
             raise AssertionError(f"{label} {name}: not on the device "
                                  f"path: {eng}")
@@ -931,7 +1035,8 @@ def run_queries(sess, label: str, n_rows: int, queries, reps: int = 5):
         log(f"{label} {name}: first {first * 1e3:.1f} ms, steady median "
             f"{med * 1e3:.1f} ms over {reps} runs, "
             f"{n_rows / med:.4g} rows/s; launches K1 "
-            f"{launches['remap_codes']}, K2 {launches['unpack_codes']}")
+            f"{launches['remap_codes']}, K2 {launches['unpack_codes']}, "
+            f"K3 {launches['dense_agg']}")
     return out
 
 
@@ -963,12 +1068,11 @@ def q18_cells(sess, n_rows: int, want: dict) -> dict:
     fused program for the per-region rung."""
     from tidb_tpu_torch.metrics import REGISTRY
 
-    k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
     for name, sql, route in (("q18i", Q18I, "engine:tile-fanout"),
                              ("q18p", Q18P, "engine:mesh")):
-        k1.launches = k2.launches = 0
+        zero_launches()
         snap = REGISTRY.snapshot()
         peel0 = snap.get("mesh_agg_peel_total", 0)
         scans0 = snap.get("mesh_scans_total", 0)
@@ -998,8 +1102,7 @@ def q18_cells(sess, n_rows: int, want: dict) -> dict:
         out[name] = {"rows": len(rows), "first_s": first,
                      "steady_s": steady, "rows_per_s": n_rows / steady,
                      "peels": peels, "route": route,
-                     "launches": {"remap_codes": k1.launches,
-                                  "unpack_codes": k2.launches}}
+                     "launches": launch_counts()}
         log(f"SF1 {name}: {len(rows)} rows == numpy reference; first "
             f"{first * 1e3:.1f} ms, steady (EXPLAIN ANALYZE) "
             f"{steady * 1e3:.1f} ms, {n_rows / steady:.4g} rows/s; "
@@ -1086,7 +1189,6 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
     runs and read just after."""
     from tidb_tpu_torch.metrics import REGISTRY
 
-    k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
     for name, sql, op, metric in cells:
@@ -1095,7 +1197,7 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
             raise AssertionError(f"{label} {name}: no {op} in {ops_}")
         snap = REGISTRY.snapshot()
         c0 = [snap.get(k, 0) for k in (metric,) + MPP_FAILURES]
-        k1.launches = k2.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         rows = sess.query(sql)
         first = time.perf_counter() - t0
@@ -1107,8 +1209,7 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
             if not same_rows(again, rows, name in ORDERED):
                 raise AssertionError(f"{label} {name}: rows changed "
                                      "between runs")
-        launches = {"remap_codes": k1.launches,
-                    "unpack_codes": k2.launches}
+        launches = launch_counts()
         snap = REGISTRY.snapshot()
         moved = [snap.get(k, 0) - c for k, c in zip(
             (metric,) + MPP_FAILURES, c0)]
@@ -1134,7 +1235,7 @@ def mpp_cells(sess, label: str, n_rows: int, cells, want: dict,
             f"unmoved; first {first * 1e3:.1f} ms, steady median "
             f"{med * 1e3:.1f} ms over {reps} runs, {n_rows / med:.4g} "
             f"rows/s; launches K1 {launches['remap_codes']}, K2 "
-            f"{launches['unpack_codes']}")
+            f"{launches['unpack_codes']}, K3 {launches['dense_agg']}")
     return out
 
 
@@ -1257,7 +1358,6 @@ def tile_cells(sess, label: str, stmts, spans, check, profiling: bool,
 
     touched = len({t for lo, hi in spans
                    for t in range(lo // TILE, (hi - 1) // TILE + 1)})
-    k1, k2 = _kernel_counts()
     sess.execute("set tidb_use_tpu = 1")
     out = {}
     plans = {}
@@ -1266,7 +1366,7 @@ def tile_cells(sess, label: str, stmts, spans, check, profiling: bool,
         if whole:
             check(name, full)
         phys = plans[sql] = sess.last_plan
-        k1.launches = k2.launches = 0
+        zero_launches()
         snap = REGISTRY.snapshot()
         c0 = [snap.get(k, 0) for k in ("dispatch_chunk_tile_ms_count",
                                        "cop_region_cpu_runs_total",
@@ -1301,8 +1401,7 @@ def tile_cells(sess, label: str, stmts, spans, check, profiling: bool,
         med = statistics.median(steady)
         out[name] = {"rows": len(rows), "first_s": first, "steady_s": med,
                      "tile_dispatches": tiles, "route": eng[0],
-                     "launches": {"remap_codes": k1.launches,
-                                  "unpack_codes": k2.launches}}
+                     "launches": launch_counts()}
         log(f"{label} {name}: {len(rows)} rows == numpy reference"
             f"{' == the fused program' + chr(39) + 's' if whole else ''}; "
             f"route {eng[0]}; {int(tiles)} device tile dispatches over "
@@ -1364,7 +1463,7 @@ def join_phase(profiling: bool):
     tc = join_cells(sess, "T", int(8000 * T_SCALE), t_cells, want,
                     "JoinProbe", reps=3)
     for r in tc.values():
-        if r["launches"] != {"remap_codes": 0, "unpack_codes": 0}:
+        if not no_k12(r["launches"]):
             raise AssertionError(f"T: kernel launches {r['launches']}")
     if profiling:
         profile_queries(sess, "T", t_cells)
@@ -1388,7 +1487,7 @@ def join_phase(profiling: bool):
     j_cells = [("q3p", Q3_SQL), ("q3d", Q3D)]
     hot = join_cells(sess, "J hot", J_LINEITEM, j_cells, want, "JoinLookup")
     for r in hot.values():
-        if r["launches"] != {"remap_codes": 0, "unpack_codes": 0}:
+        if not no_k12(r["launches"]):
             raise AssertionError(f"J hot: kernel launches {r['launches']}")
     if profiling:
         profile_queries(sess, "J hot", j_cells)
@@ -1753,29 +1852,35 @@ def srv_phase(sess, profiling: bool) -> dict:
     batched statement ran in a batch (the counters) on
     `engine:microbatch` (EXPLAIN ANALYZE), batches held more than one
     member, and the solo passes moved no batch counter."""
-    k1, k2 = _kernel_counts()
     conns = srv_statements()
     t0 = time.perf_counter()
     want = srv_reference(conns)
     log(f"srv numpy reference: {len(want)} statements in "
         f"{time.perf_counter() - t0:.1f} s")
     passes, routes = {}, {}
-    k1.launches = k2.launches = 0
-    for suffix, workers in (("", None), (f"_w{SRV_CONNS}", SRV_CONNS)):
-        server = ServerThread(sess.domain, workers)
-        try:
-            for name, window in (("solo", 0), ("batched", SRV_WINDOW_MS)):
-                passes[name + suffix] = srv_pass(server, conns, window,
-                                                 profiling)
-                passes[name + suffix]["workers"] = server.srv.workers
-                if not suffix:
-                    routes[name] = srv_routes(server, conns, window)
-        finally:
-            server.stop()
-            from tidb_tpu_torch import serving
+    zero_launches()
+    seen_k3, restore_k3 = record_dense_agg_inputs()
+    try:
+        for suffix, workers in (("", None), (f"_w{SRV_CONNS}", SRV_CONNS)):
+            server = ServerThread(sess.domain, workers)
+            try:
+                for name, window in (("solo", 0),
+                                     ("batched", SRV_WINDOW_MS)):
+                    passes[name + suffix] = srv_pass(server, conns, window,
+                                                     profiling)
+                    passes[name + suffix]["workers"] = server.srv.workers
+                    if not suffix:
+                        routes[name] = srv_routes(server, conns, window)
+            finally:
+                server.stop()
+                from tidb_tpu_torch import serving
 
-            serving.configure(microbatch_window_ms=0.0)
-    launches = {"remap_codes": k1.launches, "unpack_codes": k2.launches}
+                serving.configure(microbatch_window_ms=0.0)
+    finally:
+        restore_k3()
+    launches = launch_counts()
+    # the solo passes' dense aggregations (shapes a and b) take K3
+    k3_inputs = path_k3_phase("srv", seen_k3)
     n = SRV_CONNS * SRV_STMTS
     for name, p in passes.items():
         bad = [(sql, rows[:5], want[sql][:5]) for _s, sql, _t, rows
@@ -1821,14 +1926,15 @@ def srv_phase(sess, profiling: bool) -> dict:
     for shape, eng in routes["solo"].items():
         if not eng or not all("engine:mesh" in e for e in eng):
             raise AssertionError(f"srv solo {shape}: route {eng}")
-    if launches != {"remap_codes": 0, "unpack_codes": 0}:
+    if not no_k12(launches) or launches["dense_agg"] <= 0:
         raise AssertionError(f"srv: kernel launches {launches}")
     ratio = {s: passes["batched" + s]["stmts_per_s"]
              / passes["solo" + s]["stmts_per_s"] for s in ("", "_w32")}
     log(f"srv: rows == numpy in every pass; batched / solo statements/s "
         f"{ratio['']:.3f} ({passes['solo']['workers']} workers), "
         f"{ratio['_w32']:.3f} ({SRV_CONNS} workers)")
-    return {"srv": {"launches": launches, "passes": passes}}
+    return {"srv": {"launches": launches, "passes": passes,
+                    "k3_inputs": k3_inputs}}
 
 
 # ---------------------------------------------------------------------------
@@ -1886,11 +1992,10 @@ def float_phase(profiling: bool) -> dict:
     from tidb_tpu_torch import serving
     from tidb_tpu_torch.metrics import REGISTRY
 
-    k1, k2 = _kernel_counts()
     sess, want, fsum = fl_table()
     d = sess.domain
     out = {}
-    k1.launches = k2.launches = 0
+    zero_launches()
     for name, sql in (("fl_dense", FL_DENSE), ("fl_sort", FL_SORT)):
         runs, times = [], []
         for _ in range(FL_RUNS):
@@ -1959,7 +2064,7 @@ def float_phase(profiling: bool) -> dict:
         if norm(got) != norm(w):
             raise AssertionError(f"fl batched: rows != solo after _norm: "
                                  f"{q}")
-    launches = {"remap_codes": k1.launches, "unpack_codes": k2.launches}
+    launches = launch_counts()
     log(f"fl batched: {len(sqls)} statements x {FL_GROUPS} groups in one "
         f"batch, {wall * 1e3:.1f} ms, rows == solo rows after _norm; "
         f"launches {launches}")
@@ -2105,8 +2210,9 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
     position a visible card), hot and cold: Q1, Q6, ck1, tn and the
     filter mf, each against numpy and against its S = 1 rows, on
     `engine:mesh` with no fallback counter moved; then failover.
-    Returns (cells, K1 inputs, K2 inputs), the inputs as
-    `record_remap_inputs` / `record_unpack_inputs` key them."""
+    Returns (cells, K1 inputs, K2 inputs, K3 on its inputs), the K1
+    and K2 inputs as `record_remap_inputs` / `record_unpack_inputs` key
+    them, K3's held against its plain version (`path_k3_phase`)."""
     import torch
 
     from tidb_tpu_torch import ops
@@ -2123,17 +2229,21 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
     try:
         fail0 = failure_counters()
         seen_k1, restore_k1 = record_remap_inputs()
+        seen_k3, restore_k3 = record_dense_agg_inputs()
         try:
             hot = run_queries(sess, f"{label} hot", SF10_ROWS, cells)
         finally:
             restore_k1()
+            restore_k3()
         if len(mesh_ids()) != S:
             raise AssertionError(f"{label}: mesh {mesh_ids()}")
         check_rows(f"{label} hot", hot, want)
         compare_s1(f"{label} hot", hot, s1_hot, S)
         for name, r in hot.items():
             if r["launches"]["unpack_codes"] or \
-                    (r["launches"]["remap_codes"] > 0) != (name == "ck1"):
+                    (r["launches"]["remap_codes"] > 0) != (name == "ck1") \
+                    or (name in ("q1", "q6")
+                        and r["launches"]["dense_agg"] <= 0):
                 raise AssertionError(f"{label} hot {name}: launches "
                                      f"{r['launches']}")
         if profiling:
@@ -2142,6 +2252,7 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
         set_hot_cap_bytes(cold_cap(table))
         seen_k2, restore = record_unpack_inputs()
         seen_k1c, restore_k1 = record_remap_inputs()
+        restore_k3 = record_dense_agg_inputs(seen_k3)[1]
         try:
             cold = run_queries(sess, f"{label} cold", SF10_ROWS, cells)
             if profiling:
@@ -2149,6 +2260,8 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
         finally:
             restore()
             restore_k1()
+            restore_k3()
+        k3_inputs = path_k3_phase("mesh", seen_k3)
         check_rows(f"{label} cold", cold, want)
         compare_s1(f"{label} cold", cold,
                    {**s1_hot, **s1_cold}, S)
@@ -2156,11 +2269,15 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
             if name in ("q1", "q6", "ck1") and \
                     r["launches"]["unpack_codes"] <= 0:
                 raise AssertionError(f"{label} cold {name}: no K2 launch")
+            if name in ("q1", "q6") and r["launches"]["dense_agg"] <= 0:
+                raise AssertionError(f"{label} cold {name}: no K3 launch")
         fail1 = failure_counters()
         if fail1 != fail0:
             raise AssertionError(f"{label}: fallback counters moved: "
                                  f"{fail0} -> {fail1}")
+        zero_launches()
         fo = mesh_failover(sess, want["q1"], S)
+        fo_launches = launch_counts()
     finally:
         set_hot_cap_bytes(default_cap)
         reset_device_state()
@@ -2172,9 +2289,8 @@ def mesh_phase(sess, table, want, s1_hot, s1_cold, profiling: bool,
             seen_k1[key] = rec
     out = {f"{label} hot {k}": v for k, v in hot.items()}
     out.update({f"{label} cold {k}": v for k, v in cold.items()})
-    out[f"{label} failover"] = {**fo, "launches": {"remap_codes": 0,
-                                                   "unpack_codes": 0}}
-    return out, seen_k1, seen_k2
+    out[f"{label} failover"] = {**fo, "launches": fo_launches}
+    return out, seen_k1, seen_k2, k3_inputs
 
 
 def ma10_mesh(sess, s1: dict, want: dict, profiling: bool):
@@ -2533,8 +2649,9 @@ def mh_worker(pid: int, nprocs: int, layout: str, port: str,
               out_path: str) -> int:
     """One process of the `mh` phase: joins the group, builds the SF10
     lineitem from SEED (every process regenerates the same arrays), runs
-    Q1, Q6 and ck1 hot and cold, holds K1 and K2 against their plain
-    versions on its own per-shard inputs (one process at a time), then
+    Q1, Q6 and ck1 hot and cold, holds K1, K2 and K3 against their
+    plain versions on its own per-shard inputs (one process at a time),
+    then
     Domain T's t3 and tsj and fl_dense (FL_RUNS runs); writes its rows,
     walls, launches and peak device memory to `out_path` (pickle)."""
     import pickle
@@ -2573,10 +2690,12 @@ def mh_worker(pid: int, nprocs: int, layout: str, port: str,
     cells = [(n, _sql(n, q)) for n, q in MH_CELLS]
     torch.cuda.reset_peak_memory_stats()
     seen_k1, restore_k1 = record_remap_inputs()
+    seen_k3, restore_k3 = record_dense_agg_inputs()
     try:
         hot = run_queries(sess, f"{tag} hot", SF10_ROWS, cells)
     finally:
         restore_k1()
+        restore_k3()
     out["peak_gib"]["hot"] = _peak_gib()
     out["mesh"] = list(mesh_ids())
     out["local"] = list(parallel._MESH.local)
@@ -2586,11 +2705,13 @@ def mh_worker(pid: int, nprocs: int, layout: str, port: str,
     torch.cuda.reset_peak_memory_stats()
     seen_k2, restore = record_unpack_inputs()
     seen_k1c, restore_k1 = record_remap_inputs()
+    restore_k3 = record_dense_agg_inputs(seen_k3)[1]
     try:
         cold = run_queries(sess, f"{tag} cold", SF10_ROWS, cells)
     finally:
         restore()
         restore_k1()
+        restore_k3()
     out["peak_gib"]["cold"] = _peak_gib()
     for key, rec in seen_k1c.items():
         if key in seen_k1:
@@ -2602,8 +2723,9 @@ def mh_worker(pid: int, nprocs: int, layout: str, port: str,
         if p == pid:
             out["k2_inputs"] = path_kernel_phase(seen_k2)
             out["k1_inputs"] = path_k1_phase(seen_k1)
+            out["k3_inputs"] = path_k3_phase("mh", seen_k3)
     ops.agree(0)
-    del seen_k1, seen_k2, seen_k1c
+    del seen_k1, seen_k2, seen_k1c, seen_k3
     out["hot"] = {k: _cell_record(v) for k, v in hot.items()}
     out["cold"] = {k: _cell_record(v) for k, v in cold.items()}
     set_hot_cap_bytes(default_cap)
@@ -2660,7 +2782,7 @@ def mh_phase(want: dict, s1: dict, nprocs: int = MH_PROCS,
     card over nccl ("cards", tools/fleet_cards.py).  Every process's rows must be equal,
     equal numpy (q1, q6, ck1, t3 against q3, tsj against sj) and, where
     `s1` has them, the same cells' S = 1 rows; fl_dense equal
-    math.fsum after `_norm`.  K1 and K2 must have launched in each
+    math.fsum after `_norm`.  K1, K2 and K3 must have launched in each
     process and matched their plain versions on its inputs.  Prints
     each process's steady walls and peak device memory beside S = 1 and
     the in-process mesh."""
@@ -2717,9 +2839,14 @@ def mh_phase(want: dict, s1: dict, nprocs: int = MH_PROCS,
         for tier in ("hot", "cold"):
             if r[tier]["ck1"]["launches"]["remap_codes"] <= 0:
                 raise AssertionError(f"mh[{p}] {tier} ck1: no K1 launch")
-        bad = [k for k in r["k1_inputs"] + r["k2_inputs"]
+            for name in ("q1", "q6"):
+                if r[tier][name]["launches"]["dense_agg"] <= 0:
+                    raise AssertionError(f"mh[{p}] {tier} {name}: no K3 "
+                                         "launch")
+        bad = [k for k in r["k1_inputs"] + r["k2_inputs"] + r["k3_inputs"]
                if k["max_abs_err"]]
-        if bad or not r["k1_inputs"] or not r["k2_inputs"]:
+        if bad or not r["k1_inputs"] or not r["k2_inputs"] \
+                or not r["k3_inputs"]:
             raise AssertionError(f"mh[{p}]: kernel inputs {bad}")
         fl_s1 = s1.get("fl_dense")
         if fl_s1 is not None and norm(r["fl"]["rows"]) != norm(
@@ -2753,15 +2880,16 @@ def mh_phase(want: dict, s1: dict, nprocs: int = MH_PROCS,
             + f"; SF10 load {r['load_s']:.1f} s")
     log(f"mh: {nprocs} processes x {per} positions, backend {backend}, "
         f"{wall:.1f} s")
-    launches = {"remap_codes": 0, "unpack_codes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     for r in res:
         for tier in ("hot", "cold", "t"):
             for c in r[tier].values():
                 for k in launches:
                     launches[k] += c["launches"][k]
     return {"mh": {"launches": launches, "wall_s": wall,
-                   "k1_inputs": [k for r in res for k in r["k1_inputs"]],
-                   "k2_inputs": [k for r in res for k in r["k2_inputs"]]}}
+                   **{f"k{i}_inputs": [k for r in res
+                                       for k in r[f"k{i}_inputs"]]
+                      for i in (1, 2, 3)}}}
 
 
 DP_QUERIES = (("q1", None), ("q6", None), ("ck1", CK1))
@@ -2779,8 +2907,8 @@ def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
     every partition persisted to `dp_dir`), waits for every member of
     `members`, then runs DP_ROUNDS
     rounds of Q1, Q6 and ck1 hot and DP_ROUNDS cold (the partitions'
-    packable columns bit-packed), holds K1 and K2 against their plain
-    versions on its inputs, writes its report to `out_path` and goes on
+    packable columns bit-packed), holds K1, K2 and K3 against their
+    plain versions on its inputs, writes its report to `out_path` and goes on
     with hot rounds until SIGTERM.  Each round prints its counters and
     its end on the host clock."""
     import pickle
@@ -2831,7 +2959,6 @@ def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
         time.sleep(0.05)
     sess.execute("set tidb_use_tpu = 1")
     queries = [(n, _sql(n, q)) for n, q in DP_QUERIES]
-    k1, k2 = _kernel_counts()
 
     def cnt():
         snap = REGISTRY.snapshot()
@@ -2859,6 +2986,7 @@ def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
     default_cap = hot_cap_bytes()
     seen_k1, restore_k1 = record_remap_inputs()
     seen_k2, restore = record_unpack_inputs()
+    seen_k3, restore_k3 = record_dense_agg_inputs()
     report = {"pid": pid, "rounds": {}}
     try:
         for tier in ("hot", "cold"):
@@ -2866,7 +2994,7 @@ def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
                 part = dom.storage.table(next(iter(st.loaded.values())))
                 set_hot_cap_bytes(cold_cap(part))
                 reset_device_state()
-            k1.launches = k2.launches = 0
+            zero_launches()
             ref = None
             walls, moves = [], []
             for _ in range(DP_ROUNDS):
@@ -2879,14 +3007,15 @@ def dp_member(pid: int, members: int, layout: str, rf: int, port: str,
             eng = {n: engines(sess, q) for n, q in queries}
             report["rounds"][tier] = {
                 "rows": ref, "walls": walls, "moved": moves, "engines": eng,
-                "launches": {"remap_codes": k1.launches,
-                             "unpack_codes": k2.launches}}
-        report["k2_inputs"] = path_kernel_phase(seen_k2)
-        report["k1_inputs"] = path_k1_phase(seen_k1)
+                "launches": launch_counts()}
     finally:
         restore()
         restore_k1()
-    del seen_k1, seen_k2
+        restore_k3()
+    report["k2_inputs"] = path_kernel_phase(seen_k2)
+    report["k1_inputs"] = path_k1_phase(seen_k1)
+    report["k3_inputs"] = path_k3_phase("dp", seen_k3)
+    del seen_k1, seen_k2, seen_k3
     set_hot_cap_bytes(default_cap)
     reset_device_state()
     ref = report["rounds"]["hot"]["rows"]
@@ -2916,8 +3045,8 @@ def dp_phase(want: dict, members: int = DP_MEMBERS, rf: int = 1,
     round of every member must be served by the data plane (every
     statement counted on `dataplane_queries_total`, every partition
     fragment on the card, no host-engine run, no bypass) with rows equal
-    to numpy, and K1 and K2 must have launched and matched their plain
-    versions on the members' inputs.  Then the last member is
+    to numpy, and K1, K2 and K3 must have launched and matched their
+    plain versions on the members' inputs.  Then the last member is
     killed (SIGKILL): the epoch must bump, the survivors take over its
     partitions (RF = 1: replayed from the persisted blocks,
     `dataplane_cold_reloads_total` moves; RF = 2: promoted replicas,
@@ -3028,7 +3157,7 @@ def dp_phase(want: dict, members: int = DP_MEMBERS, rf: int = 1,
                              f"cold {cold_n}, promoted {promoted}: "
                              f"{post[:3]}")
     refs = {"q1": want["q1"], "q6": want["q6"], "ck1": want["ck1"]}
-    launches = {"remap_codes": 0, "unpack_codes": 0}
+    launches = dict.fromkeys(launch_counts(), 0)
     for r in reports:
         p = r["pid"]
         for tier, rd in r["rounds"].items():
@@ -3054,11 +3183,13 @@ def dp_phase(want: dict, members: int = DP_MEMBERS, rf: int = 1,
                 f"{[int(m['card']) for m in rd['moved']]}; launches "
                 f"{rd['launches']}")
         if r["rounds"]["cold"]["launches"]["unpack_codes"] <= 0 or \
-                r["rounds"]["hot"]["launches"]["remap_codes"] <= 0:
+                r["rounds"]["hot"]["launches"]["remap_codes"] <= 0 or \
+                any(rd["launches"]["dense_agg"] <= 0
+                    for rd in r["rounds"].values()):
             raise AssertionError(f"dp[{p}]: launches {r['rounds']}")
-        bad = [k for k in r["k1_inputs"] + r["k2_inputs"]
+        bad = [k for k in r["k1_inputs"] + r["k2_inputs"] + r["k3_inputs"]
                if k["max_abs_err"]]
-        if bad:
+        if bad or not r["k3_inputs"]:
             raise AssertionError(f"dp[{p}]: kernel inputs {bad}")
     wall = time.perf_counter() - t_start
     log(f"dp: {members} members, RF {rf}; member {victim} killed at "
@@ -3070,8 +3201,9 @@ def dp_phase(want: dict, members: int = DP_MEMBERS, rf: int = 1,
         f"first recovered round {rec['wall_ms']:.1f} ms; phase {wall:.1f} s")
     return {"dp": {"launches": launches, "recover_s": recover_s,
                    "wall_s": wall,
-                   "k1_inputs": [k for r in reports for k in r["k1_inputs"]],
-                   "k2_inputs": [k for r in reports for k in r["k2_inputs"]]}}
+                   **{f"k{i}_inputs": [k for r in reports
+                                       for k in r[f"k{i}_inputs"]]
+                      for i in (1, 2, 3)}}}
 
 
 def fleet_worker(argv) -> int:
@@ -3105,7 +3237,7 @@ def lint_phase() -> dict:
     for name, st in stats.items():
         if name != "__signatures__":
             log(f"lint {name}: ops {st['ops']}, i64_ops {st['i64_ops']}, "
-                f"K1 {st['k1']}, K2 {st['k2']}")
+                f"K1 {st['k1']}, K2 {st['k2']}, K3 {st['k3']}")
     log(f"lint: corpus ProgramCache entries "
         f"{stats['__signatures__']['max']}; {len(findings)} finding(s); "
         f"phase {wall:.1f} s")
@@ -3117,7 +3249,8 @@ def lint_phase() -> dict:
             if n not in CUDA_KERNELS and n != "__signatures__"]
     return {"lint": {"launches": {
         "remap_codes": sum(st["k1"] for st in path),
-        "unpack_codes": sum(st["k2"] for st in path)},
+        "unpack_codes": sum(st["k2"] for st in path),
+        "dense_agg": sum(st["k3"] for st in path)},
         "wall_s": wall, "stats": stats}}
 
 
@@ -3156,9 +3289,43 @@ def kernel_entry(name: str, launches: int, on_path: list,
         "bound_by": "bytes", "library_ms": k.get("library_ms"),
         "n": k["n"],
     }
-    for extra in ("bits", "out_dtype", "unfused_ms", "code", "map", "cap"):
+    for extra in ("bits", "out_dtype", "unfused_ms", "code", "map", "cap",
+                  "K", "G"):
         if extra in k:
             entry[extra] = k[extra]
+    return entry
+
+
+def k3_entry(cells, hot, cold, mesh, joins, fleet, lint,
+             on_path: list) -> dict:
+    """K3's entry of the `kernels` line: its numbers on the S = 1 input
+    (hot or cold) the path launched most, then the launches of each
+    path (S = 1 hot and cold, the mesh, the fleet's processes, the
+    serving passes, the lint's programs) and every path input it was
+    held against its plain version on, the fleet's and the serving
+    path's among them."""
+    fleet_inputs = [r for ph in fleet.values() for r in ph["k3_inputs"]]
+    srv_inputs = joins["T srv"]["k3_inputs"]
+    entry = kernel_entry(
+        "dense_agg", sum(r["launches"]["dense_agg"] for r in cells),
+        on_path + fleet_inputs + srv_inputs,
+        [r for r in on_path if r["path"] in ("hot", "cold")])
+    entry["path_launches"] = {
+        "hot": sum(r["launches"]["dense_agg"] for r in hot.values()),
+        "cold": sum(r["launches"]["dense_agg"] for r in cold.values()),
+        "mesh": sum(r["launches"]["dense_agg"] for r in mesh.values()),
+        **{f"fleet_{ph}": r["launches"]["dense_agg"]
+           for ph, r in fleet.items()},
+        "srv": joins["T srv"]["launches"]["dense_agg"],
+        "lint": lint["lint"]["launches"]["dense_agg"]}
+    entry["path_inputs"] = [{x: r[x] for x in (
+        "path", "n", "K", "G", "calls", "ms", "plain_ms", "bound_ms",
+        "max_abs_err")} for r in on_path + fleet_inputs + srv_inputs]
+    if any(not v for v in entry["path_launches"].values()) \
+            or entry["max_abs_err"]:
+        raise AssertionError(f"dense_agg: launches "
+                             f"{entry['path_launches']}, max |err| "
+                             f"{entry['max_abs_err']}")
     return entry
 
 
@@ -3235,10 +3402,13 @@ def main(argv) -> int:
     # hot deployment: every column resident, no unpack launch
     fail0 = failure_counters()
     seen_k1, restore_k1 = record_remap_inputs()
+    seen_k3, restore_k3 = record_dense_agg_inputs()
     try:
         hot = run_queries(sess, "hot", SF10_ROWS, both + hot_only)
     finally:
         restore_k1()
+        restore_k3()
+    on_path_k3 = path_k3_phase("hot", seen_k3)
     check_rows("hot", hot, want)
     for name, r in hot.items():
         if r["launches"]["unpack_codes"] != 0:
@@ -3247,6 +3417,8 @@ def main(argv) -> int:
         if (r["launches"]["remap_codes"] > 0) != (name in ("ck1", "ck2")):
             raise AssertionError(f"hot {name}: remap launches "
                                  f"{r['launches']}")
+        if name in ("q1", "q6") and r["launches"]["dense_agg"] <= 0:
+            raise AssertionError(f"hot {name}: no K3 launch")
     if profiling:
         profile_queries(sess, "hot", both + hot_only)
 
@@ -3259,11 +3431,14 @@ def main(argv) -> int:
     hits0 = REGISTRY.snapshot().get("layout_cold_hits_total", 0)
     seen, restore = record_unpack_inputs()
     seen_k1_cold, restore_k1 = record_remap_inputs()
+    seen_k3, restore_k3 = record_dense_agg_inputs()
     try:
         cold = run_queries(sess, "cold", SF10_ROWS, both)
     finally:
         restore()
         restore_k1()
+        restore_k3()
+    on_path_k3 += path_k3_phase("cold", seen_k3)
     hits1 = REGISTRY.snapshot().get("layout_cold_hits_total", 0)
     for r in sess.query(
             "select column_name, encoding, packed_bits, tier, tile_bucket"
@@ -3283,6 +3458,8 @@ def main(argv) -> int:
         if (r["launches"]["remap_codes"] > 0) != (name in ("ck1", "ck2")):
             raise AssertionError(f"cold {name}: remap launches "
                                  f"{r['launches']}")
+        if name in ("q1", "q6") and r["launches"]["dense_agg"] <= 0:
+            raise AssertionError(f"cold {name}: no K3 launch")
     if hits1 <= hits0:
         raise AssertionError("cold: no cold-tier hit")
     fail1 = failure_counters()
@@ -3301,8 +3478,9 @@ def main(argv) -> int:
 
     # the mesh: MESH_S positions on the one card, then mA10 at each of
     # MESH_MA10_S; K1's and K2's inputs there join the path's inputs
-    mesh, seen_k1_mesh, seen_k2_mesh = mesh_phase(
+    mesh, seen_k1_mesh, seen_k2_mesh, k3_mesh = mesh_phase(
         sess, table, want, hot, cold, profiling)
+    on_path_k3 += k3_mesh
     ma10_m, seen_k1_ma10m = ma10_mesh(
         sess, ma10, {"mA10": ma10["mA10"]["rows"]}, profiling)
     mesh.update(ma10_m)
@@ -3416,7 +3594,8 @@ def main(argv) -> int:
                                  f"{entry['fleet_launches']}")
     for entry, key in ((k1, "remap_codes"), (k2, "unpack_codes")):
         entry["lint_launches"] = lint["lint"]["launches"][key]
-    kernels = {"kernels": [k1, k2]}
+    k3 = k3_entry(cells, hot, cold, mesh, joins, fleet, lint, on_path_k3)
+    kernels = {"kernels": [k1, k2, k3]}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -103,6 +103,110 @@ def test_remap_codes_kernel_matches_plain(card, code_dtype, map_dtype):
             assert torch.equal(got, remap_codes_plain(codes, mapping, n))
 
 
+def _dense_agg_inputs(dev, n: int, K: int, G: int, seed: int = 21):
+    """K3's inputs as the cell's Q1 dispatch has them: codes in [0, G)
+    (in [0, 6) for one group, whose codes neither version reads), a
+    mask and validities mostly true, int64 values near +-2**62 (so the
+    sums wrap), every third operand count-only."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gidx = torch.randint(0, G if G > 1 else 6, (n,), device=dev,
+                         generator=g)
+    mask = torch.rand(n, device=dev, generator=g) < 0.97
+    values, valids = [], []
+    for k in range(K):
+        valids.append(torch.rand(n, device=dev, generator=g) < 0.9)
+        values.append(None if k % 3 == 2 else torch.randint(
+            -(1 << 62), 1 << 62, (n,), device=dev, generator=g))
+    return gidx, mask, values, valids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 6, 32])
+def test_dense_agg_kernel_matches_plain_at_the_cells_shape(card, G):
+    """K3 equals its plain version bit for bit over one Q1 dispatch of
+    the benchmark's cell (20 M rows, 7 operands), at its 6 groups and
+    at 1 and 32."""
+    from tidb_tpu_torch.copr.cuda import dense_agg, dense_agg_plain
+
+    n = 20_000_000 + 72  # the ragged end runs too
+    args = (*_dense_agg_inputs(card, n, 7, G), G)
+    before = dense_agg.launches
+    got = dense_agg(*args)
+    want = dense_agg_plain(*args)
+    torch.cuda.synchronize()
+    assert dense_agg.launches == before + 1
+    assert got.shape == (15, G) and got.dtype == torch.int64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo", [0, 8, 24, 1, 3])
+@pytest.mark.parametrize("G", [6, 32])
+def test_dense_agg_kernel_on_slices_matches_plain(card, G, lo):
+    """Slices [lo:hi] of larger tensors, as a dispatch takes them: lo a
+    multiple of 8 rows (bool slices 8 but not 16 bytes past alignment,
+    so the vector loads' head) and odd lo (row-by-row reads), with a
+    ragged tail, for every small n too."""
+    from tidb_tpu_torch.copr.cuda import dense_agg, dense_agg_plain
+
+    big = (1 << 21) + 1000
+    gidx, mask, values, valids = _dense_agg_inputs(card, big, 5, G)
+    for hi in (lo, lo + 1, lo + 511, lo + 513, lo + (1 << 21) + 333):
+        sl = [None if t is None else t[lo:hi]
+              for t in [gidx, mask, *values, *valids]]
+        args = (sl[0], sl[1], sl[2:7], sl[7:12], G)
+        assert torch.equal(dense_agg(*args), dense_agg_plain(*args)), hi
+
+
+@pytest.mark.cuda
+def test_dense_agg_kernel_raises_on_bad_inputs(card):
+    from tidb_tpu_torch.copr.cuda import dense_agg
+
+    gidx, mask, values, valids = _dense_agg_inputs(card, 4096, 2, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_agg(gidx[::2], mask[::2], [v[::2] for v in values],
+                  [ok[::2] for ok in valids], 6)
+    strided = torch.stack([valids[1], valids[1]], 1)[:, 0]
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_agg(gidx, mask, values, [valids[0], strided], 6)
+    with pytest.raises(TypeError, match="int64"):
+        dense_agg(gidx.int(), mask, values, valids, 6)
+    with pytest.raises(TypeError, match="bool"):
+        dense_agg(gidx, mask.to(torch.uint8), values, valids, 6)
+    with pytest.raises(TypeError, match="int64"):
+        dense_agg(gidx, mask, [values[0].double(), values[1]], valids, 6)
+    with pytest.raises(ValueError, match="num_groups"):
+        dense_agg(gidx, mask, values, valids, 33)
+
+
+@pytest.mark.cuda
+def test_whole_table_q1_on_card_takes_dense_agg(card):
+    """TPC-H Q1 and Q6 from SQL over the whole-table program on the
+    card: the rows of the port's host engine, every dense aggregation on
+    K3 (its launch count and `copr_dense_agg_kernel_total` advance,
+    `copr_dense_agg_plain_total` does not)."""
+    from tidb_tpu_torch.copr.cuda import dense_agg
+    from tidb_tpu_torch.metrics import REGISTRY
+    from tidb_tpu_torch.tpch_data import (LINEITEM_Q1, LINEITEM_Q6,
+                                          build_lineitem)
+
+    sess = build_lineitem(1 << 20, regions=4, seed=7)
+    sess.execute("set tidb_use_tpu = 0")
+    want = [sess.query(LINEITEM_Q1), sess.query(LINEITEM_Q6)]
+    sess.execute("set tidb_use_tpu = 1")
+    launches = dense_agg.launches
+    kern = REGISTRY.get("copr_dense_agg_kernel_total")
+    plain = REGISTRY.get("copr_dense_agg_plain_total")
+    got = [sess.query(LINEITEM_Q1), sess.query(LINEITEM_Q6)]
+    engines = [r[4] for r in sess.execute(
+        "explain analyze " + LINEITEM_Q1)[0].rows if "TableReader" in r[0]]
+    assert got == want and got[0] and got[1]
+    assert engines and all("engine:mesh" in e for e in engines), engines
+    assert dense_agg.launches >= launches + 2
+    assert REGISTRY.get("copr_dense_agg_kernel_total") >= kern + 2
+    assert REGISTRY.get("copr_dense_agg_plain_total") == plain
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("descending", [True, False])
 def test_masked_top_k_orders_ties_by_row_on_card(card, descending):

@@ -10,7 +10,8 @@ a plain C interface (no PyTorch headers, so a build takes seconds):
 The output lives under ``build/kernels/`` at the repository root and is
 named by a hash of the source and the flags, so an edited source
 rebuilds and an unchanged one loads what is there.  ``build_all``
-starts one nvcc per source, all at once, and waits for every one.  A
+starts one nvcc per source, all at once, and waits for every one; a
+kernel's first use builds its own source alone.  A
 failed build raises with nvcc's output; a build's registers and spills
 per kernel (ptxas's report) are kept for ``ptxas_report``.  Nothing is
 built at import.
@@ -72,14 +73,16 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every kernel source not yet built (one nvcc each, run
-    concurrently); returns name -> seconds spent building it (0.0 when
-    its library was already there)."""
+def build_all(names=None) -> Dict[str, float]:
+    """Compile every kernel source (or those of `names`) not yet built,
+    one nvcc each, run concurrently; returns name -> seconds spent
+    building it (0.0 when its library was already there)."""
     with _mu:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo, secs = {}, {}
         for name, src in sources().items():
+            if names is not None and name not in names:
+                continue
             out = _target(src)
             if out.exists():
                 secs[name] = 0.0
@@ -114,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     src = sources()[name]
     if not _target(src).exists():
-        build_all()
+        build_all([name])
     with _mu:
         lib = _LIBS.get(name)
         if lib is None:

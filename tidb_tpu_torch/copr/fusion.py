@@ -146,58 +146,126 @@ def dense_group_codes(ctx: RegionContext):
     return gidx
 
 
+def dense_agg_kernel_path(mask, num_groups: int) -> bool:
+    """Whether a dense aggregation takes K3 (`copr/cuda.dense_agg`) for
+    its integer partial states: on the card, an unbatched mask and no
+    more than `UNROLL_G` groups.  The micro-batcher's [B, n] masks,
+    wider aggregations and the CPU keep the masked segment reductions
+    (K3's plain version is their composition)."""
+    from ..ops.segment import UNROLL_G
+
+    return mask.is_cuda and mask.dim() == 1 and num_groups <= UNROLL_G
+
+
 def dense_agg_results(ctx: RegionContext, gidx):
     """The dense segment reductions for every aggregate in the region:
     (gcount, results) in the layout `parallel._merge_mesh_agg` (or, per
     tile, `torch_engine._merge_device_agg`) folds.  first_row emits the
     first GLOBAL row index per group when the context has row offsets
-    (`gofs`), else the first tile-local index."""
+    (`gofs`), else the first tile-local index.
+
+    The integer states (gcount, every count, every sum with an integer
+    state) come from `_int_states`: one K3 launch where
+    `dense_agg_kernel_path` holds, else the masked segment reductions.
+    Float sums, min, max and first_row values are masked segment
+    reductions either way.  The registry counts each call under
+    `copr_dense_agg_kernel_total` or `copr_dense_agg_plain_total`."""
+    from ..metrics import REGISTRY
+    from ..types import TypeKind
     from .torch_engine import _to_state_dtype
 
     an = ctx.an
     G = an.num_groups
     m = ctx.mask
-    gcount = ops.masked_segment_count(gidx, m, G)
+    kernel = dense_agg_kernel_path(m, G)
+    REGISTRY.inc("copr_dense_agg_kernel_total" if kernel
+                 else "copr_dense_agg_plain_total")
     spans = ops.SpanOrder(gidx, G)  # one sort for every float sum
-    results = []
+    # (int64 values or None, validity, m & validity if made): the
+    # operands whose sum and count `_int_states` computes
+    operands = []
+    plan = []  # per aggregate: (kind, value or None, operand index)
     for a in an.agg.aggs:
-        if a.name == "count":
-            if a.args:
-                d, v = compile_expr(a.args[0], ctx.cols, ctx.n)
-                results.append(ops.masked_segment_count(gidx, m & v, G))
-            else:
-                results.append(gcount)
+        if a.name == "count" and not a.args:
+            plan.append(("gcount", None, None))
             continue
         d, v = compile_expr(a.args[0], ctx.cols, ctx.n)
-        mv = m & v
-        if a.name in ("sum", "avg"):
+        kind, value, vals, mv = "pair", None, None, None
+        if a.name == "count":
+            kind = "count"
+        elif a.name in ("sum", "avg"):
             st = a.partial_types()[0]
             dd = _to_state_dtype(d, a.args[0].ftype, st)
-            results.append((
-                ops.masked_segment_sum(dd, gidx, mv, G, spans),
-                ops.masked_segment_count(gidx, mv, G),
-            ))
-        elif a.name == "min":
-            results.append((
-                ops.masked_segment_min(d, gidx, mv, G),
-                ops.masked_segment_count(gidx, mv, G),
-            ))
-        elif a.name == "max":
-            results.append((
-                ops.masked_segment_max(d, gidx, mv, G),
-                ops.masked_segment_count(gidx, mv, G),
-            ))
-        elif a.name == "first_row":
-            if ctx.gofs is not None:
-                # first GLOBAL row index (n_global when the group is
-                # empty)
-                contrib = torch.where(
-                    mv, ctx.gofs, torch.full_like(ctx.gofs, ctx.n_global))
-                results.append(ops.segment_min(contrib, gidx, G))
+            if st.kind != TypeKind.FLOAT:
+                kind, vals = "sum", dd
             else:
-                # per tile: the tile-local index (TILE when empty)
-                results.append(ops.masked_segment_argfirst(gidx, mv, G))
+                mv = m & v
+                value = ops.masked_segment_sum(dd, gidx, mv, G, spans)
+        elif a.name == "min":
+            mv = m & v
+            value = ops.masked_segment_min(d, gidx, mv, G)
+        elif a.name == "max":
+            mv = m & v
+            value = ops.masked_segment_max(d, gidx, mv, G)
+        elif a.name == "first_row":
+            plan.append(("value", _first_row(ctx, gidx, m & v, G), None))
+            continue
+        else:
+            continue
+        plan.append((kind, value, len(operands)))
+        operands.append((vals, v, mv))
+    gcount, sums, counts = _int_states(gidx, m, operands, G, kernel)
+    results = []
+    for kind, value, k in plan:
+        if kind == "gcount":
+            results.append(gcount)
+        elif kind == "value":
+            results.append(value)
+        elif kind == "count":
+            results.append(counts[k])
+        else:
+            results.append((sums[k] if kind == "sum" else value, counts[k]))
     return gcount, results
+
+
+def _int_states(gidx, m, operands, G: int, kernel: bool):
+    """gcount and, per (values or None, validity, m & validity or None)
+    operand, the sum of its values and the count over the rows of `m`
+    and its validity (the sum of a count-only operand is not used): one
+    K3 launch per `MAX_K` operands when `kernel`, else ops/segment.py's
+    masked sums and counts."""
+    if not kernel:
+        gcount = ops.masked_segment_count(gidx, m, G)
+        sums, counts = [], []
+        for vals, v, mv in operands:
+            mv = m & v if mv is None else mv
+            sums.append(None if vals is None
+                        else ops.masked_segment_sum(vals, gidx, mv, G))
+            counts.append(ops.masked_segment_count(gidx, mv, G))
+        return gcount, sums, counts
+    # the package's attribute, so that a recorder can stand in for it
+    from .cuda import dense_agg
+    from .cuda.dense_agg import MAX_K
+
+    m = m.contiguous()
+    rows = []
+    for i in range(0, max(len(operands), 1), MAX_K):
+        part = operands[i:i + MAX_K]
+        rows.append(dense_agg(
+            gidx, m, [d if d is None else d.contiguous() for d, _, _ in part],
+            [v.contiguous() for _, v, _ in part], G).unbind(0))
+    return (rows[0][0], [s for r in rows for s in r[1::2]],
+            [c for r in rows for c in r[2::2]])
+
+
+def _first_row(ctx: RegionContext, gidx, mv, G: int):
+    if ctx.gofs is not None:
+        # first GLOBAL row index (n_global when the group is empty)
+        contrib = torch.where(
+            mv, ctx.gofs, torch.full_like(ctx.gofs, ctx.n_global))
+        return ops.segment_min(contrib, gidx, G)
+    # per tile: the tile-local index (TILE when empty)
+    return ops.masked_segment_argfirst(gidx, mv, G)
 
 
 def topn_key(ctx: RegionContext):

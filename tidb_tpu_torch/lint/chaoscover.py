@@ -85,7 +85,8 @@ def lint_tree(repo_root: Optional[str] = None) -> List[Finding]:
     pkg = os.path.join(repo_root, "tidb_tpu_torch")
     parsed: List[Tuple[str, ast.Module, Dict[str, str]]] = []
     global_consts: Dict[str, str] = {}
-    for dirpath, _dirs, files in os.walk(pkg):
+    for dirpath, dirs, files in os.walk(pkg):
+        dirs.sort()  # a site's first path must not follow the filesystem
         for fn in sorted(files):
             if not fn.endswith(".py"):
                 continue

@@ -6,17 +6,17 @@ data (`nonzero`, `bincount`, size reads), so meta or fake tensors cannot
 stand in for the inputs; here "trace" means RUNNING the program once on
 canonical TILE-shaped inputs on the chosen device under an op recorder
 (`trace_program`): a `TorchDispatchMode` that records every aten op with
-its output dtypes, plus the K1/K2 launches the kernel wrappers count (a
-ctypes launch is not an aten op).  The stats of one program are
-``{"ops": n, "i64_ops": m, "k1": a, "k2": b}`` — the counterpart of the
-JAX package's ``{"eqns", "i64_eqns"}``.
+its output dtypes, plus the K1/K2/K3 launches the kernel wrappers count
+(a ctypes launch is not an aten op).  The stats of one program are
+``{"ops": n, "i64_ops": m, "k1": a, "k2": b, "k3": c}`` — the
+counterpart of the JAX package's ``{"eqns", "i64_eqns"}``.
 
 For every canonical program shape (the per-tile programs of
 `torch_engine._build_tile_fn` over CANONICAL_KERNEL_QUERIES, the
 whole-fragment mesh programs of `parallel._build_mesh_core` over
 FUSED_FRAGMENT_KERNELS and the cold class, the canonical MPP exchange,
 tree and grouped programs of `mpp/exchange.py`, the micro-batcher's
-batched program, and the two CUDA kernels), this pass fails on:
+batched program, and the three CUDA kernels), this pass fails on:
 
 1. a contract break: the program raises on its canonical inputs;
 2. operand-value divergence: under shifted keys, another group budget,
@@ -30,8 +30,8 @@ batched program, and the two CUDA kernels), this pass fails on:
    no nvcc build, and the corpus' entries stay under the baseline's
    `__signatures__` cap;
 5. growth: a program's `i64_ops` past the baseline of the device that
-   ran (the port runs different programs on the two devices: K1/K2 on
-   the card, their plain versions on the CPU).
+   ran (the port runs different programs on the two devices: K1/K2/K3
+   on the card, their plain versions on the CPU).
 
 On the card the CUDA kernels must equal their plain versions exactly;
 on the CPU their plain versions must meet the kernels' contract.
@@ -129,9 +129,10 @@ FUSED_FRAGMENT_KERNELS = [
 ]
 
 #: the hand-written CUDA kernels (copr/cuda) that replace the JAX
-#: package's Pallas tier: each runs on a canonical input, guards the
-#: operand-value rule, and is held against its plain version
-CUDA_KERNELS = ("cuda-remap-codes", "cuda-unpack-codes")
+#: package's Pallas tier and (K3) its dense-aggregate composition: each
+#: runs on a canonical input, guards the operand-value rule, and is held
+#: against its plain version
+CUDA_KERNELS = ("cuda-remap-codes", "cuda-unpack-codes", "cuda-dense-agg")
 
 RULE = "kernel-contract"
 
@@ -143,23 +144,24 @@ RULE = "kernel-contract"
 
 class OpTrace:
     """The ops one program run issued: (aten op, output dtypes) in
-    order, and the K1/K2 launches the kernel wrappers counted."""
+    order, and the K1/K2/K3 launches the kernel wrappers counted."""
 
-    __slots__ = ("ops", "k1", "k2")
+    __slots__ = ("ops", "k1", "k2", "k3")
 
-    def __init__(self, ops, k1: int = 0, k2: int = 0):
+    def __init__(self, ops, k1: int = 0, k2: int = 0, k3: int = 0):
         self.ops = ops
         self.k1 = k1
         self.k2 = k2
+        self.k3 = k3
 
     def stats(self) -> Dict[str, int]:
         return {"ops": len(self.ops),
                 "i64_ops": sum(1 for _n, dts in self.ops
                                if "torch.int64" in dts),
-                "k1": self.k1, "k2": self.k2}
+                "k1": self.k1, "k2": self.k2, "k3": self.k3}
 
     def signature(self) -> tuple:
-        return tuple(self.ops), self.k1, self.k2
+        return tuple(self.ops), self.k1, self.k2, self.k3
 
     def __eq__(self, other):
         return isinstance(other, OpTrace) \
@@ -179,22 +181,23 @@ class _OpRecorder(TorchDispatchMode):
         return out
 
 
-def _launch_counts() -> Tuple[int, int]:
+def _launch_counts() -> Tuple[int, int, int]:
+    from ..copr.cuda.dense_agg import dense_agg
     from ..copr.cuda.remap import remap_codes
     from ..copr.cuda.unpack import unpack_codes
 
-    return remap_codes.launches, unpack_codes.launches
+    return remap_codes.launches, unpack_codes.launches, dense_agg.launches
 
 
 def trace_program(fn, *args, **kwargs):
     """Run `fn(*args, **kwargs)` once under the op recorder; returns
     (its result, OpTrace)."""
-    k1, k2 = _launch_counts()
+    before = _launch_counts()
     rec = _OpRecorder()
     with rec:
         out = fn(*args, **kwargs)
-    e1, e2 = _launch_counts()
-    return out, OpTrace(rec.ops, e1 - k1, e2 - k2)
+    after = _launch_counts()
+    return out, OpTrace(rec.ops, *(a - b for a, b in zip(after, before)))
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +333,8 @@ def _cuda_kernel(name: str) -> OpTrace:
     from ..layout.coldtier import pack_codes
 
     dev = ops.device()
+    if name == "cuda-dense-agg":
+        return _cuda_dense_agg(dev)
     if name == "cuda-remap-codes":
         codes_np = (np.arange(257, dtype=np.int32) * 7) % 16
         codes = torch.from_numpy(codes_np).to(dev)
@@ -361,6 +366,59 @@ def _cuda_kernel(name: str) -> OpTrace:
             "unpack_codes disagrees with its plain version or with the "
             "pack_codes round trip")
     return tr
+
+
+def dense_agg_numpy(gidx, mask, values, valids, G: int):
+    """K3's function in numpy (int64 arithmetic wraps as the kernel's
+    does): the [1 + 2K, G] group counts, sums and counts.  A masked row
+    whose code lies past the groups counts nowhere; one group reads no
+    code."""
+    out = np.zeros((1 + 2 * len(valids), G), dtype=np.int64)
+    live = mask & (gidx >= 0) & (gidx < G) if G > 1 else mask
+    gidx = gidx if G > 1 else np.zeros_like(gidx)
+    with np.errstate(over="ignore"):
+        for g in range(G):
+            rows = live & (gidx == g)
+            out[0, g] = rows.sum()
+            for k, ok in enumerate(valids):
+                sel = rows & ok
+                out[2 + 2 * k, g] = sel.sum()
+                if values[k] is not None:
+                    out[1 + 2 * k, g] = values[k][sel].sum()
+    return out
+
+
+def _cuda_dense_agg(dev) -> OpTrace:
+    """K3 on a ragged canonical input (517 rows, 6 groups, masked rows'
+    codes past the groups and masked-out rows' negative codes, two
+    valued operands and a count-only one); other values run the
+    identical op sequence."""
+    from ..copr.cuda import dense_agg, dense_agg_plain
+
+    n, G = 517, 6
+    mask_np = np.arange(n) % 7 != 3
+    gidx_np = (np.arange(n, dtype=np.int64) * 5) % (G + 1)
+    gidx_np[~mask_np] = -1
+    valid_np = [np.arange(n) % 5 != k for k in range(3)]
+    traces = []
+    for shift in (0, 1 << 61):
+        vals_np = [np.arange(n, dtype=np.int64) * 3 - 700 + shift,
+                   np.arange(n, dtype=np.int64) % 11 + shift, None]
+        t = [None if x is None else torch.from_numpy(x).to(dev)
+             for x in [gidx_np, mask_np] + vals_np + valid_np]
+        args = (t[0], t[1], t[2:5], t[5:8], G)
+        got, tr = trace_program(dense_agg, *args)
+        traces.append(tr)
+        want = dense_agg_numpy(gidx_np, mask_np, vals_np, valid_np, G)
+        if dev.type == "cuda" and not torch.equal(
+                got, dense_agg_plain(*args)):
+            raise AssertionError("dense_agg disagrees with its plain version")
+        if not np.array_equal(got.cpu().numpy(), want):
+            raise AssertionError("dense_agg disagrees with numpy")
+    if traces[0] != traces[1]:
+        raise AssertionError(
+            "operand values changed the dense_agg kernel's op sequence")
+    return traces[0]
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,11 @@ same rows give the same bits on every run — no atomics.  Counts are a
 ``bincount`` (an exact integer histogram), except for a scalar
 aggregate's single group, which is the mask's sum: a bincount into two
 bins measured about 4 ms a call over 60 M rows on an H100 (PERF.md).
-min/max/argfirst are order-free and use ``scatter_reduce_``.
+min/max/argfirst are order-free and use ``scatter_reduce_``.  On the
+card, the fused programs' unbatched dense aggregations of at most
+`UNROLL_G` groups take their counts and integer sums from one pass of
+K3 instead (`copr/cuda.dense_agg`, whose plain version composes these
+reductions; chosen in `copr/fusion.dense_agg_results`).
 
 Every masked reduction also takes a batch of masks ``[B, n]`` over one
 row layout (the micro-batcher's program, serving/batcher.py): member
