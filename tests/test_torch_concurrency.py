@@ -425,3 +425,77 @@ def test_remap_cache_runs_under_the_witness():
     assert any('"lower"' in k[2] for k in fusion._REMAP_CACHE)
     assert witness_stats()["violations"] == v0
 
+
+
+def test_fifo_lock_hands_over_in_arrival_order():
+    """The device door's lock: waiters that queued one after another take
+    it in that order, whichever thread the scheduler runs first, and a
+    releasing thread that asks again queues behind them."""
+    from tidb_tpu_torch.copr.parallel import DISPATCH_LOCK
+    from tidb_tpu_torch.util_concurrency import FifoLock
+
+    inner = getattr(DISPATCH_LOCK, "_lock", DISPATCH_LOCK)
+    assert isinstance(inner, FifoLock)
+    lock, order = FifoLock(), []
+    lock.acquire()
+    threads = []
+    for i in range(N_THREADS):
+        t = threading.Thread(target=lambda i=i: (lock.acquire(),
+                                                 order.append(i),
+                                                 lock.release()))
+        t.start()
+        deadline = time.monotonic() + 10
+        while len(lock._waiters) < i + 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        threads.append(t)
+    lock.release()
+    lock.acquire()
+    order.append("again")
+    lock.release()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert order == list(range(N_THREADS)) + ["again"]
+    assert not lock.locked()
+
+
+def test_fifo_lock_timeout_and_non_blocking():
+    from tidb_tpu_torch.util_concurrency import FifoLock
+
+    lock = FifoLock()
+    assert lock.acquire(False)
+    assert not lock.acquire(False)
+    t0 = time.monotonic()
+    assert not lock.acquire(True, 0.05)
+    assert time.monotonic() - t0 >= 0.05
+    assert not lock._waiters          # the timed-out waiter left the queue
+    lock.release()
+    assert not lock.locked()
+    with pytest.raises(RuntimeError):
+        lock.release()
+    with lock:
+        assert lock.locked()
+
+
+def test_fifo_lock_stress_no_lost_updates():
+    """8 threads, a short switch interval: every increment under the
+    lock lands, and the lock ends free."""
+    import sys
+
+    from tidb_tpu_torch.util_concurrency import FifoLock
+
+    lock, box = FifoLock(), [0]
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def work(_i):
+            for _ in range(2000):
+                with lock:
+                    v = box[0]
+                    box[0] = v + 1
+
+        _run_threads(work)
+    finally:
+        sys.setswitchinterval(old)
+    assert box[0] == N_THREADS * 2000
+    assert not lock.locked()

@@ -705,12 +705,93 @@ def test_group_budget_overflow_peels_the_aggregation(pair, monkeypatch):
 
 
 def test_tree_budget_overflow_peels_the_aggregation(tree_pair, monkeypatch):
-    monkeypatch.setenv("TIDB_TPU_MPP_GROUP_BUDGET", "4")
+    """Past the card's group limit the aggregation peels to the host."""
+    from tidb_tpu_torch.mpp import jointree
+
+    monkeypatch.setattr(jointree, "group_limit", lambda *_a: 4)
     o0 = _snap("mpp_grouped_agg_overflow_total")[0]
     _tree_parity(tree_pair, FOUR_WAY_AGG)
     assert _snap("mpp_grouped_agg_overflow_total")[0] > o0
     rows = tree_pair[1].execute("explain analyze " + FOUR_WAY_AGG)[0].rows
     assert any("+agg-peel" in str(r[4]) for r in rows)
+
+
+def test_tree_group_overflow_regrows_the_final_on_the_card(tree_pair,
+                                                         monkeypatch):
+    """A planner budget under the groups (12 nations) and over nothing
+    else: the final re-runs on the card at the joined rows, no peel."""
+    monkeypatch.setenv("TIDB_TPU_MPP_GROUP_BUDGET", "4")
+    o0 = _snap("mpp_grouped_agg_overflow_total")[0]
+    got = _tree_parity(tree_pair, FOUR_WAY_AGG)
+    assert len(got) > 4
+    assert _snap("mpp_grouped_agg_overflow_total")[0] > o0
+    rows = tree_pair[1].execute("explain analyze " + FOUR_WAY_AGG)[0].rows
+    mode = [str(r[4]) for r in rows if "engine:mpp-tree" in str(r[4])]
+    assert mode and all("+grouped" in m and "+agg-peel" not in m
+                        for m in mode), mode
+
+
+@pytest.mark.parametrize("n_keys,words,S", [(3, 2, 1), (1, 1, 4),
+                                             (6, 8, 8)])
+def test_group_limit_is_the_most_slots_an_eighth_holds(n_keys, words, S):
+    """The card's group limit: the largest power of two of the final's
+    slots, at their layout's bytes, inside the engines' share of the
+    card; more shards or words a group hold fewer."""
+    from tidb_tpu_torch.mpp import engine
+
+    lim = engine.group_limit(n_keys, words, S)
+    per = engine.group_slot_bytes(n_keys, words, S)
+    share = engine.card_share_bytes()
+    assert lim & (lim - 1) == 0
+    assert lim * per <= share < 2 * lim * per
+    assert engine.group_limit(n_keys, words + 1, S) <= lim
+    assert engine.group_limit(n_keys, words, 2 * S) < lim
+
+
+def _load_unsigned_tables(d):
+    """Three keyed tables whose `a_u` values, cast to UNSIGNED, hold bit
+    patterns at and above 2^63 (-3, -1) beside small ones."""
+    s = d.new_session()
+    s.execute("create table ua (a_id bigint primary key, a_u bigint)")
+    s.execute("create table ub (b_a bigint, b_c bigint, b_v bigint)")
+    s.execute("create table uc (c_id bigint primary key, c_x bigint)")
+    ts = d.storage.current_ts()
+
+    def table(name):
+        return d.storage.table(d.catalog.info_schema().table(
+            "test", name).id)
+
+    rng = np.random.default_rng(5)
+    u = np.array([-3, -1, 3, 5, 7, 11, 1 << 62, 1], dtype=np.int64)
+    table("ua").bulk_load_arrays([np.arange(40, dtype=np.int64),
+                                  u[np.arange(40) % 8]], ts=ts)
+    table("ub").bulk_load_arrays([rng.integers(0, 40, 600),
+                                  rng.integers(0, 30, 600),
+                                  rng.integers(0, 100, 600)], ts=ts)
+    table("uc").bulk_load_arrays([np.arange(30, dtype=np.int64),
+                                  rng.integers(0, 9, 30)], ts=ts)
+    for name in ("ua", "ub", "uc"):
+        s.execute(f"analyze table {name}")
+    return s
+
+
+@pytest.mark.parametrize("sql", [
+    "select cast(a_u as unsigned) as k, count(*) from ub"
+    " join ua on b_a = a_id join uc on b_c = c_id"
+    " group by k order by k desc limit 3",
+    "select a_u, count(*), max(cast(a_u as unsigned)) as m from ub"
+    " join ua on b_a = a_id join uc on b_c = c_id"
+    " group by a_u order by m desc limit 3",
+], ids=["unsigned-key", "unsigned-max"])
+def test_tree_topn_leaves_unsigned_items_to_the_host(sql):
+    """The card's TopN sorts signed int64 words: an unsigned key or
+    aggregate stays with the host TopN, over every group."""
+    js, ts = _pair_of(_load_unsigned_tables)
+    rows = ts.execute("explain analyze " + sql)[0].rows
+    mode = [str(r[4]) for r in rows if "engine:mpp-tree" in str(r[4])]
+    assert mode and all("+grouped" in m and "+top" not in m
+                        for m in mode), mode
+    assert _norm(ts.query(sql)) == _norm(js.query(sql))
 
 
 @pytest.mark.parametrize("msg", ["exchange program failed",

@@ -30,15 +30,17 @@ def _sum_repr(v: Vec, st: FieldType) -> np.ndarray:
     return cast_vec(v, st).data
 
 
-def group_indices(cols: List[Column]) -> Tuple[np.ndarray, List[tuple], int]:
-    """Map rows to dense group ids.  Returns (gidx, key_tuples, G).
+def group_indices(cols: List[Column]) -> Tuple[np.ndarray, np.ndarray, int]:
+    """Map rows to dense group ids.  Returns (gidx, first, G): `first[g]`
+    is the row where group g first appears (`key_columns` reads the keys
+    there).
 
     Single fixed-width columns factorize through the native open-addressing
     hash (tidb_tpu/native), assigning codes in first-appearance order — the
     C-speed replacement for the reference's row-at-a-time agg hash maps."""
     n = len(cols[0]) if cols else 0
     if not cols:
-        return np.zeros(n, dtype=np.int64), [()], 1
+        return np.zeros(n, dtype=np.int64), np.zeros(1, dtype=np.int64), 1
     if len(cols) == 1 and cols[0].data.dtype != object and n:
         from ..native import KeyTable
 
@@ -56,11 +58,10 @@ def group_indices(cols: List[Column]) -> Tuple[np.ndarray, List[tuple], int]:
         if has_null:
             gidx = np.where(gidx < 0, n_named, gidx)  # NULL = its own group
         G = n_named + (1 if has_null else 0)
-        # first-occurrence row per group -> key tuples
+        # first-occurrence row per group
         first = np.full(G, n, dtype=np.int64)
         np.minimum.at(first, gidx, np.arange(n, dtype=np.int64))
-        keys = [(c.get(int(first[g])),) for g in range(G)]
-        return gidx, keys, G
+        return gidx, first, G
     # multi-column / object keys: per-column vectorized factorize +
     # mixed-radix combine (re-factorized per step so codes stay < n and
     # never overflow), then a first-appearance remap so group ids and
@@ -68,7 +69,7 @@ def group_indices(cols: List[Column]) -> Tuple[np.ndarray, List[tuple], int]:
     # its own code per column (validity joins the key), and equal float
     # keys collapse like the single-column bit-domain path.
     if n == 0:
-        return np.zeros(0, dtype=np.int64), [], 0
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64), 0
     combined = np.zeros(n, dtype=np.int64)
     for c in cols:
         inv, card = _factorize_column(c)
@@ -82,10 +83,24 @@ def group_indices(cols: List[Column]) -> Tuple[np.ndarray, List[tuple], int]:
     rank = np.empty(G, dtype=np.int64)
     rank[order] = np.arange(G, dtype=np.int64)
     gidx = rank[combined]
-    # G key tuples gathered from each group's first row (G-scale, the
-    # same per-group materialization the single-column path does)
-    keys = [tuple(c.get(int(first[g])) for c in cols) for g in order]
-    return gidx, keys, G
+    return gidx, first[order], G
+
+
+def key_columns(cols: List[Column], first: np.ndarray) -> List[Column]:
+    """Each key column's value at its groups' first rows, one row a
+    group, as `Column.from_values` builds them (NULL data zeroed, or the
+    object fill)."""
+    out = []
+    for c in cols:
+        dt = c.ftype.np_dtype
+        data = c.data[first]
+        if dt != object:
+            data = data.astype(dt)
+        valid = None if c.valid is None else c.valid[first]
+        if valid is not None and not valid.all():
+            data[~valid] = Column._object_fill(c.ftype) if dt == object else 0
+        out.append(Column(c.ftype, data, valid))
+    return out
 
 
 def _factorize_column(c: Column) -> Tuple[np.ndarray, int]:
@@ -308,13 +323,11 @@ def merge_partials_to_final(n_keys: int, aggs: List[AggDesc],
         whole = whole.append(c)
     key_cols = [whole.col(i) for i in range(n_keys)]
     if key_cols:
-        gidx, keys, G = group_indices(key_cols)
+        gidx, first, G = group_indices(key_cols)
     else:
-        gidx, keys, G = np.zeros(whole.num_rows, dtype=np.int64), [()], 1
-    out_cols: List[Column] = []
-    for ci in range(n_keys):
-        vals = [k[ci] for k in keys]
-        out_cols.append(Column.from_values(key_cols[ci].ftype, vals))
+        gidx, first, G = np.zeros(whole.num_rows, dtype=np.int64), None, 1
+    out_cols: List[Column] = (key_columns(key_cols, first) if key_cols
+                              else [])
     off = n_keys
     for a in aggs:
         width = len(a.partial_types())

@@ -113,15 +113,14 @@ def grouped_partial_chunks(group_by, aggs, chunks) -> List[Chunk]:
 def _run_agg(agg_ir: AggregationIR, chunk: Chunk) -> Chunk:
     gcols = [g.eval(chunk).to_column() for g in agg_ir.group_by]
     if gcols:
-        gidx, keys, G = aggstate.group_indices(gcols)
+        gidx, first, G = aggstate.group_indices(gcols)
     else:
         # scalar aggregation: one group, one output row
-        gidx, keys, G = np.zeros(chunk.num_rows, dtype=np.int64), [()], 1
-    out_cols: List[Column] = []
+        gidx, first, G = np.zeros(chunk.num_rows, dtype=np.int64), None, 1
     # group-key output columns (one row per group)
-    for ci, g in enumerate(agg_ir.group_by):
-        vals = [k[ci] for k in keys]
-        out_cols.append(Column.from_values(g.ftype, vals))
+    out_cols: List[Column] = (aggstate.key_columns(
+        [Column(g.ftype, c.data, c.valid)
+         for g, c in zip(agg_ir.group_by, gcols)], first) if gcols else [])
     for a in agg_ir.aggs:
         if a.distinct:
             cols = _distinct_states(a, chunk, gidx, G)

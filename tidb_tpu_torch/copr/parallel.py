@@ -82,8 +82,10 @@ from .torch_engine import _Analyzed, _fingerprint
 from ..ops.collective import first_local
 
 # ONE fused program in flight per process: concurrent statements take
-# turns on the card (resource-group admission rides this lock)
-DISPATCH_LOCK = make_lock("copr.parallel:DISPATCH_LOCK")
+# turns on the card (resource-group admission rides this lock), in the
+# order they reach it, so no statement's dispatch waits out several
+# rounds of the others'
+DISPATCH_LOCK = make_lock("copr.parallel:DISPATCH_LOCK", fifo=True)
 
 _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool,

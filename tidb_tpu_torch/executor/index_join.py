@@ -37,6 +37,7 @@ from ..expr.expression import Expression, eval_bool_mask
 from ..types import TypeKind
 from .base import Executor, OrderedPipeline
 from .index_reader import _overlay_sets
+from .join import count_host_join_rows
 
 
 class IndexLookUpJoinExec(Executor):
@@ -106,7 +107,7 @@ class IndexLookUpJoinExec(Executor):
                 return None
             self._buf = [c for c in out.split(self.ctx.chunk_size)
                          if c.num_rows]
-        return self._buf.pop(0)
+        return count_host_join_rows(self._buf.pop(0))
 
     # ------------------------------------------------------------------
     # one outer batch -> joined output chunk

@@ -28,9 +28,24 @@ from ..errors import ExecutorError
 from ..expr.builtins import cast_vec
 from ..expr.expression import Expression, eval_bool_mask
 from ..expr.vec import Vec
+from ..metrics import REGISTRY
 from ..types import TypeKind, ty_bool
 from .base import ExecContext, Executor
 from ..util_concurrency import make_lock
+
+
+#: declared at 0, so a window in which no host join ran reads 0 rather
+#: than nothing
+REGISTRY.inc("host_join_rows_total", 0)
+
+
+def count_host_join_rows(chunk: Optional[Chunk]) -> Optional[Chunk]:
+    """`chunk`, its rows added to `host_join_rows_total`: every join the
+    host executes (hash, index lookup, merge, the MPP engines' host
+    rungs) counts what it emits."""
+    if chunk is not None and chunk.num_rows:
+        REGISTRY.inc("host_join_rows_total", chunk.num_rows)
+    return chunk
 
 
 _STR_DICT_MU = make_lock("executor.join:_STR_DICT_MU")
@@ -224,8 +239,6 @@ class HashJoinExec(Executor):
         self._build_buf.clear()
         self.ctx.mem_tracker.release(freed)
         self._build_consumed = max(self._build_consumed - freed, 0)
-        from ..metrics import REGISTRY
-
         REGISTRY.inc("hashjoin_spills_total")
         return freed
 
@@ -310,7 +323,7 @@ class HashJoinExec(Executor):
         if self._grace:
             if self._grace_iter is None:
                 self._grace_iter = self._run_grace()
-            return next(self._grace_iter, None)
+            return count_host_join_rows(next(self._grace_iter, None))
         if self._probe_pipe is None:
             from .base import OrderedPipeline
 
@@ -318,7 +331,7 @@ class HashJoinExec(Executor):
                 self.ctx.hash_join_concurrency, self.child(1).next,
                 self._join_chunk,
             )
-        return self._probe_pipe.next()
+        return count_host_join_rows(self._probe_pipe.next())
 
     def _run_grace(self):
         """Grace hash join: the probe side partitions to disk by the same
@@ -588,7 +601,7 @@ class MergeJoinExec(Executor):
             return None
         c = self._out[self._pos]
         self._pos += 1
-        return c
+        return count_host_join_rows(c)
 
 
 class NestedLoopApplyExec(Executor):

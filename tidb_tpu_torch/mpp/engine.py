@@ -162,8 +162,55 @@ def _group_budget(spec, S: int) -> Tuple[int, int]:
     every shard emits an equal slice of the merged groups."""
     budget = (int(os.environ.get("TIDB_TPU_MPP_GROUP_BUDGET", "0"))
               or spec.group_budget or 4096)
-    cap_g0 = _pow2ceil(budget)
-    return budget, S * (-(-cap_g0 // S))
+    return budget, _group_cap(budget, S)
+
+
+def _group_cap(budget: int, S: int) -> int:
+    return S * (-(-_pow2ceil(budget) // S))
+
+
+def group_slot_bytes(n_keys: int, state_words: int, S: int) -> int:
+    """Device bytes a slot of a join tree's grouped final takes on one
+    card, from `grouped_phase`'s layout in int64 words, with S shards on
+    the card and w = 2 n_keys + state_words + 1 words a partial group
+    (key words, their null flags, the states, the slot flag):
+
+    - each shard's compacted partials and their first-row positions,
+      then its merged groups with their spans: S (2w + 5);
+    - each shard's all-gathered copy of every shard's partials, and its
+      merge's sort over them (permutation, the radix sort's two
+      buffers, sorted keys and flags, boundaries, segment ids and their
+      prefix sum, one gathered state at a time, its prefix sum):
+      S^2 (w + 2 n_keys + 10)."""
+    w = 2 * n_keys + state_words + 1
+    return 8 * (S * (2 * w + 5) + S * S * (w + 2 * n_keys + 10))
+
+
+def state_words(aggs) -> int:
+    """int64 words of the partial states `aggs` keep a group (a count
+    one; a sum, an average, a min or a max its value and count)."""
+    return sum(1 if a.name in ("count", "first_row") else 2 for a in aggs)
+
+
+def group_limit(n_keys: int, n_state_words: int, S: int) -> int:
+    """The most groups a join tree's grouped final holds on the card: the
+    largest power of two whose slots (`group_slot_bytes`) take at most
+    an eighth of the device's memory (off the card, of the hot tier's
+    cap)."""
+    per = group_slot_bytes(n_keys, n_state_words, S)
+    return 1 << max((card_share_bytes() // per).bit_length() - 1, 10)
+
+
+def card_share_bytes() -> int:
+    """An eighth of the device's memory (off the card, of the hot tier's
+    cap): what one buffer of the MPP engines may be sized to."""
+    if ops.device().type == "cuda":
+        mem = torch.cuda.get_device_properties(ops.device()).total_memory
+    else:
+        from ..layout import hot_cap_bytes
+
+        mem = hot_cap_bytes()
+    return mem // 8
 
 
 class _SideState:
@@ -907,6 +954,7 @@ def _host_grouped_partials(spec: MPPJoinSpec,
     the parent is a FINAL HashAgg and merges groups across chunks."""
     from ..copr.cpu_engine import grouped_partial_chunks
 
+    REGISTRY.inc("host_join_rows_total", sum(c.num_rows for c in chunks))
     return grouped_partial_chunks(spec.group_by, spec.aggs, chunks)
 
 

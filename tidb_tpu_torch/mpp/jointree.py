@@ -28,10 +28,11 @@ THAT RUNG on the broadcast strategy (build side replicated, intermediate
 stays local), a blown emission buffer grows that rung's buffer; past
 those — or on any structural ineligibility — MPPIneligible is raised and
 the caller (MPPTreeReaderExec, mpp/reader.py) runs the same ladder as
-chained host hash joins.  Grouped-aggregation budget overflow peels the
-agg to a host tail over the device-joined rows, exactly like the
-two-table engine's agg-peel rung.  A device runtime failure retries on
-the card, then reaches the statement.
+chained host hash joins.  The grouped final is sized from the rows the
+ladder joined and regrown on the card when its groups outrun it; only
+past the card's group limit does the agg peel to a host tail over the
+device-joined rows, like the two-table engine's agg-peel rung.  A
+device runtime failure retries on the card, then reaches the statement.
 """
 
 from __future__ import annotations
@@ -72,14 +73,17 @@ from .engine import (
     _computed_string_key,
     _expr_refs,
     _group_budget,
+    _group_cap,
     _join_slack,
     _pow2ceil,
     _shard_side,
     _SideState,
     _assemble_partials,
+    card_share_bytes,
     _slack,
     assemble_grouped,
     grouped_phase,
+    group_limit,
     grouped_pushdown_enabled,
     merge_scalar_states,
     read_flags,
@@ -89,6 +93,7 @@ from .engine import (
     remap_operands,
     scalar_partial_states,
     select_rows,
+    state_words,
 )
 
 #: chaos site: fires before each rung's exchange program (armed actions
@@ -142,6 +147,9 @@ class MPPJoinTreeSpec:
     aggs: Optional[list] = None
     group_by: Optional[list] = None
     group_budget: int = 0
+    # ([(kind "key" | "agg", index, desc)], k): only the k merged groups
+    # that lead by these items leave the card
+    topn: Optional[tuple] = None
 
 
 # ---------------------------------------------------------------------------
@@ -193,8 +201,8 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     from side 0's scan) + the build side's cached scan columns
     (`ops.Shards`).  Outputs: (flags, next intermediate slots, live-row
     mask, each one tensor a shard) — the flags one int64 tensor
-    [partition overflow, emission overflow] summed across shards, the
-    rest staying on the card.
+    [partition overflow, emission overflow, live rows] summed across
+    shards, the rest staying on the card.
 
     `elide_probe`: the caller proved the intermediate is ALREADY
     hash-partitioned by this rung's key slots (the previous shuffle rung
@@ -377,9 +385,13 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                 out_slots[2 * n_slots + 2 * j + 1][d] = \
                     hit & recv_b[2 + 2 * j][d][bidx]
             keeps[d] = out_valid if louter else out_valid & hit
-        j_over = zero if fast_filter else \
-            ops.psum(ops.gather_shards(j_overs)).to(overflow.device)
-        return torch.stack([overflow, j_over]), out_slots, keeps
+        # per shard (emission overflow, rows kept), summed in one gather
+        counts = ops.psum(ops.gather_shards([
+            None if keep is None else torch.stack(
+                [zero if fast_filter else j_overs[d].to(zero.device),
+                 keep.sum().to(zero.device)])
+            for d, keep in enumerate(keeps)])).to(overflow.device)
+        return torch.cat([overflow.reshape(1), counts]), out_slots, keeps
 
     return prog
 
@@ -425,10 +437,12 @@ def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
     """The final partial-aggregation program over the finished
     intermediate (one tensor a shard per slot): scalar partials summed
     across shards, or the grouped sort-group + on-card merge over the
-    slot layout.  fn(*slots, mask[, budget, *maps]) returns (flags,
-    payload) as the pair engine's program does."""
+    slot layout, then the spec's TopN over the merged groups.
+    fn(*slots, mask[, budget, *maps]) returns (flags, payload) as the
+    pair engine's program does."""
     n_slots = len(spec.slot_src)
     grouped = group_rw is not None
+    topn = spec.topn if grouped else None
 
     def prog(*args):
         mask = args[2 * n_slots]
@@ -446,6 +460,9 @@ def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
                 [None if n is None else torch.clamp(n - gbudget, min=0)
                  for n in n_uniqs]))
             over_m = torch.clamp(mn_uniq - gbudget, min=0)
+            if topn is not None:
+                m_keys, m_states = _top_groups(topn, aggs_rw, m_keys,
+                                               m_states, mn_uniq)
             dev0 = over_l.device
             return (torch.stack([over_l, over_m.to(dev0),
                                  mn_uniq.to(dev0)]),
@@ -456,6 +473,36 @@ def _build_final_fn(spec: MPPJoinTreeSpec, n_in: int, cap_g: int, aggs_rw,
                       for env, m in zip(envs, mask)])
 
     return prog
+
+
+def _top_groups(topn, aggs, keys, states, n_groups):
+    """The merged groups reordered so that the first `k` lead by the
+    TopN's items (SQL order: NULL below every value), live groups before
+    the empty slots, ties in merged order; the first k are kept."""
+    items, k = topn
+    nk = len(keys) // 2
+    cap = keys[0].shape[0]
+    dev = keys[0].device
+    order = torch.arange(cap, dtype=torch.int64, device=dev)
+    low = torch.iinfo(torch.int64).min
+    for kind, i, desc in reversed(items):
+        if kind == "key":
+            v, ok = keys[i], keys[nk + i] != 0
+        elif aggs[i].name == "count":
+            v, ok = states[i], None
+        else:
+            v, ok = states[i]
+            ok = ok > 0
+        v = v.to(torch.int64)
+        if ok is not None:
+            v = torch.where(ok, v, torch.full_like(v, low))
+        order = order[torch.sort(v[order], descending=desc,
+                                 stable=True).indices]
+    dead = (order >= n_groups.to(dev)).to(torch.int8)
+    top = order[torch.sort(dead, stable=True).indices][:k]
+    return ([t[top] for t in keys],
+            [tuple(x[top] for x in st) if isinstance(st, tuple)
+             else st[top] for st in states])
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +581,6 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
     slack = _slack()
     join_slack = _join_slack()
     grouped = spec.aggs is not None and spec.group_by is not None
-    budget, cap_g = _group_budget(spec, S) if grouped else (0, 0)
     remaps = _tree_key_remaps(spec, states) if grouped else None
 
     # dict-rewrite the per-rung other conds and final agg exprs against
@@ -588,7 +634,7 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
     # ---- run the ladder ---------------------------------------------
     inter = None     # flat (data, valid) tensors per slot
     mask = None
-    n_in = states[0].n_local
+    n_in = live = states[0].n_local
     # key-slot tuples the intermediate is hash-partitioned by (empty
     # until the first shuffle rung: rung 0's input is range-partitioned)
     residency: set = set()
@@ -611,8 +657,11 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
                   else n_in)
         # emission buffer sized by the planner's rung estimate (the whole
         # result could land on ONE shard when the base side is a single
-        # tile), then boosted x4 per runtime overflow
-        est_cap = _pow2ceil(int(2 * max(rung.est_rows, 1)))
+        # tile), at most what the card's share holds of the rung's output
+        # columns, then boosted x4 per runtime overflow
+        fit = card_share_bytes() // (9 * _slots_of_prefix(spec, r + 1) + 32)
+        est_cap = min(_pow2ceil(int(2 * max(rung.est_rows, 1))),
+                      1 << max(fit.bit_length() - 1, 0))
         cap_out = max(int(join_slack * n_recv), est_cap, 16) * boosts[r]
         conds_sig = json.dumps(
             [serialize_expr(c) for c in rung_conds[r]], sort_keys=True)
@@ -651,7 +700,7 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
                   elided=int(elide), build_table=bs.side.table_id):
             with dispatch_admission(DISPATCH_LOCK):
                 flags, out_slots, keep = fn(*args)
-                overflow, jover = read_flags(flags)
+                overflow, jover, live = read_flags(flags)
         observe_chunk("mpp", (time.perf_counter() - t0) * 1000.0,
                       OUT_CHUNK_ROWS)
         if overflow:
@@ -698,37 +747,53 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
          for a in aggs_rw]
         + ([serialize_expr(g) for g in group_rw] if grouped else []),
         sort_keys=True)
-    fp = (base_fp + f"|final|n_in={n_in}|capg={cap_g}|agg={fin_sig}"
-          + (f"|rcaps={[r.cap if r else None for r in remaps]}"
-             if remaps else ""))
-    fn = _COMPILED.get(fp)
-    if fn is None:
-        fn = _build_final_fn(spec, n_in, cap_g, aggs_rw, group_rw, remaps,
-                             owners=mesh.owners)
-        _COMPILED.put(fp, fn)
-    args = tuple(inter) + (mask,)
+    # groups never outnumber the joined rows: the grouped final starts at
+    # the planner's budget or the live rows, whichever is less; a budget
+    # overflow re-runs the final alone at the live rows, and only past
+    # the card's group limit does the aggregation peel to the host
+    budget = limit = 0
     if grouped:
-        args = args + (budget,) + remap_operands(remaps, mesh)
-    scope_check()
-    with span("mpp.tree.final", grouped=grouped):
-        with dispatch_admission(DISPATCH_LOCK):
-            flags, payload = fn(*args)
-            if grouped:
-                flags = read_flags(flags)
-            else:
-                payload = read_scalars(payload)
-    if grouped:
-        over_l, over_m, k = flags
-        if over_l or over_m:
-            raise MPPGroupedAggOverflow(
-                f"tree: distinct groups over budget {budget} "
-                f"(per-shard over {over_l}, merged over {over_m})")
-        annotate(groups=k, group_budget=budget)
-        return _assemble_tree_grouped(spec, states, k, payload[0],
-                                      payload[1], remaps=remaps)
-    # scalar partials: the pair engine's `_assemble_partials` builds the
-    # one partial row (the JAX package's `_assemble_tree_partials`)
-    return _assemble_partials(spec.aggs, payload)
+        limit = group_limit(len(spec.group_by), state_words(spec.aggs), S)
+        budget = min(_group_budget(spec, S)[0], max(live, 1), limit)
+    while True:
+        cap_g = _group_cap(budget, S) if grouped else 0
+        fp = (base_fp + f"|final|n_in={n_in}|capg={cap_g}|agg={fin_sig}"
+              + f"|top={spec.topn}"
+              + (f"|rcaps={[r.cap if r else None for r in remaps]}"
+                 if remaps else ""))
+        fn = _COMPILED.get(fp)
+        if fn is None:
+            fn = _build_final_fn(spec, n_in, cap_g, aggs_rw, group_rw,
+                                 remaps, owners=mesh.owners)
+            _COMPILED.put(fp, fn)
+        args = tuple(inter) + (mask,)
+        if grouped:
+            args = args + (budget,) + remap_operands(remaps, mesh)
+        scope_check()
+        with span("mpp.tree.final", grouped=grouped):
+            with dispatch_admission(DISPATCH_LOCK):
+                flags, payload = fn(*args)
+                if not grouped:
+                    # scalar partials: one partial row, as the pair
+                    # engine builds it
+                    return _assemble_partials(spec.aggs,
+                                              read_scalars(payload))
+                over_l, over_m, k = read_flags(flags)
+        if not (over_l or over_m):
+            break
+        msg = (f"tree: distinct groups over budget {budget} "
+               f"(per-shard over {over_l}, merged over {over_m})")
+        if budget >= min(live, limit):
+            raise MPPGroupedAggOverflow(msg)
+        REGISTRY.inc("mpp_grouped_agg_overflow_total")
+        annotate(grouped_agg_overflow=msg[:120])
+        budget = min(live, limit)
+    REGISTRY.inc("mpp_tree_groups_total", k)
+    annotate(groups=k, group_budget=budget)
+    if spec.topn is not None:
+        k = min(k, spec.topn[1])
+    return _assemble_tree_grouped(spec, states, k, payload[0], payload[1],
+                                  remaps=remaps)
 
 
 def run_mpp_jointree(storage,
@@ -780,6 +845,8 @@ def _run_mpp_jointree(storage,
                 mode += "+agg-peel"
             elif spec.group_by is not None and spec.aggs is not None:
                 mode += "+grouped"
+                if spec.topn is not None:
+                    mode += f"+top{spec.topn[1]}"
             REGISTRY.inc("mpp_tree_joins_total")
             return chunks, mode
         except MPPGroupedAggOverflow as e:

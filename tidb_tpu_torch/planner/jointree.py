@@ -165,14 +165,20 @@ def _eligible_side(ds: LogicalDataSource, pctx) -> Optional[_Side]:
 
 
 def _side_ndv(side: _Side, uid: int, pctx) -> Optional[float]:
+    from .physical import _build_key_unique
+
     sc = next((c for c in side.ds.schema.cols if c.uid == uid), None)
-    if sc is None or pctx.stats is None:
+    if sc is None:
         return None
-    st = pctx.stats.get(side.table.id)
+    st = pctx.stats.get(side.table.id) if pctx.stats is not None else None
     cs = st.columns.get(sc.store_offset) if st else None
-    if cs is None or cs.ndv <= 0:
-        return None
-    return float(cs.ndv)
+    if cs is not None and cs.ndv > 0:
+        return float(cs.ndv)
+    # unanalyzed: a single-column primary or unique key has as many
+    # distinct values as the side has rows
+    if _build_key_unique(side.ds, uid):
+        return _side_rows(side, pctx)
+    return None
 
 
 def _side_rows(side: _Side, pctx) -> float:
@@ -600,9 +606,8 @@ def try_jointree_agg(plan: LogicalAggregation, join: LogicalPlan, pctx):
     if tp is None:
         return None
 
-    from .physical import (MPP_GROUP_BUDGET_MAX, MPP_GROUP_BUDGET_MIN,
-                           _is_plain_col, _mpp_grouped_enabled,
-                           _partial_schema)
+    from .physical import (MPP_GROUP_BUDGET_MIN, _is_plain_col,
+                           _mpp_grouped_enabled, _partial_schema)
 
     grouped = bool(group_by)
     if grouped and not _mpp_grouped_enabled():
@@ -644,10 +649,11 @@ def try_jointree_agg(plan: LogicalAggregation, join: LogicalPlan, pctx):
         # correlated keys (Q3's l_orderkey, o_orderdate) make the NDV
         # product wildly pessimistic: groups cannot exceed joined rows
         est_g = min(est_g, 2.0 * max(est_rows, 1.0))
-        if est_g > MPP_GROUP_BUDGET_MAX:
-            return None
-        budget = int(min(max(2.0 * est_g, MPP_GROUP_BUDGET_MIN),
-                         MPP_GROUP_BUDGET_MAX))
+        # the estimate only seeds the final's capacity: the ladder bounds
+        # it by the rows it joined and by the card's group limit
+        # (mpp.engine.group_limit), and regrows it on the card when the
+        # groups outrun it
+        budget = int(max(2.0 * est_g, MPP_GROUP_BUDGET_MIN))
 
     # agg exprs remap onto the slot layout
     slot_map = dict(tp.slot_of)

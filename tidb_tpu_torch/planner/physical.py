@@ -381,6 +381,9 @@ class PhysMPPJoinTree(PhysicalPlan):
         self.aggs = aggs
         self.group_by = group_by
         self.group_budget = group_budget
+        # ([(kind "key" | "agg", index, desc)], k): the TopN above the
+        # final HashAgg, kept on the card (set by _push_topn_into_tree)
+        self.topn = None
 
     @property
     def name(self) -> str:
@@ -443,7 +446,7 @@ class PhysMPPJoinTree(PhysicalPlan):
             out_slots=list(self.out_slots),
             out_ftypes=list(self.out_ftypes),
             aggs=self.aggs, group_by=self.group_by,
-            group_budget=self.group_budget)
+            group_budget=self.group_budget, topn=self.topn)
         return MPPTreeReaderExec(ctx, spec, self.schema.ftypes(), self.id)
 
 
@@ -1662,7 +1665,47 @@ def _physical_topn(plan: LogicalTopN, pctx: PhysicalContext) -> PhysicalPlan:
     items = [(e, d) for e, d in
              zip(_remap([e for e, _ in plan.items], child.schema),
                  [d for _, d in plan.items])]
+    _push_topn_into_tree(child, items, k)
     return PhysTopN(child, items, plan.limit, plan.offset)
+
+
+#: kinds whose values order on the card as SQL orders them (int64 words)
+_TREE_TOPN_KINDS = (TypeKind.INT, TypeKind.DATE, TypeKind.DECIMAL)
+
+
+def _push_topn_into_tree(child: PhysicalPlan, items, k: int):
+    """A TopN over the final HashAgg of a join tree's grouped final: the
+    groups the tree merges on the card are whole and unique there, so
+    its final phase keeps only the k that lead by `items`, and k group
+    rows leave the card instead of every group.  The HashAgg and the
+    TopN still run over those k.  Items must be plain group keys of
+    int64-ordered kinds, or count / sum / min / max over such kinds."""
+    if not (isinstance(child, PhysHashAgg) and child.partial_input
+            and isinstance(child.children[0], PhysMPPJoinTree)):
+        return
+    tree = child.children[0]
+    if not tree.group_by or tree.aggs is None:
+        return
+    n_gb = len(tree.group_by)
+    out = []
+    for e, desc in items:
+        if not isinstance(e, ColumnExpr):
+            return
+        if e.index < n_gb:
+            ft = tree.group_by[e.index].ftype
+            if ft.kind not in _TREE_TOPN_KINDS or ft.is_wide_decimal:
+                return
+            out.append(("key", e.index, bool(desc)))
+            continue
+        # a pushed aggregate's state is an int64 word on the card,
+        # whatever the width of its SQL type
+        a = tree.aggs[e.index - n_gb]
+        if a.distinct or a.name not in ("count", "sum", "min", "max") or (
+                a.name != "count"
+                and a.args[0].ftype.kind not in _TREE_TOPN_KINDS):
+            return
+        out.append(("agg", e.index - n_gb, bool(desc)))
+    tree.topn = (out, k)
 
 
 def _try_push_limit(plan: LogicalLimit, pctx: PhysicalContext):
@@ -1963,9 +2006,10 @@ def _try_mpp_join(plan: LogicalJoin,
         reason=_mpp_reason(pctx, build_est), elided=copart)
 
 
-#: grouped-pushdown budget ceiling: above this estimated group count the
-#: compacted (key, state) all_gather stops paying for itself and the
-#: generic plan (device join + host agg over joined rows) serves better
+#: the pair lane's grouped-pushdown ceiling: above this estimated group
+#: count the compacted (key, state) all_gather stops paying for itself
+#: and the generic plan (device join + host agg over joined rows) serves
+#: better.  The join tree's limit follows the card (mpp.engine.group_limit)
 MPP_GROUP_BUDGET_MAX = 1 << 15
 MPP_GROUP_BUDGET_MIN = 1 << 10
 

@@ -19,11 +19,18 @@ tidb-server SIGTERM handling):
   statements run to their own deadlines within the drain budget, then
   cancels survivors through their QueryScope (reason 'shutdown') and
   closes connections cleanly.
+
+The heap the server starts over (the catalog, the loaded tables'
+dictionaries, the imported modules) lives as long as the process.  A
+full garbage collection walks all of it while every worker waits on the
+interpreter lock, so start() moves it out of the collector's reach
+(`gc.freeze`) and the drain hands it back.
 """
 
 from __future__ import annotations
 
 import asyncio
+import gc
 import os
 import struct
 import time as _time
@@ -88,6 +95,9 @@ class MySQLServer:
         )
         addr = self._server.sockets[0].getsockname()
         self.port = addr[1]
+        # full collections walk only what serving allocates from here on
+        gc.collect()
+        gc.freeze()
         # rolling-restart handoff (coord plane): adopt any session state
         # a draining predecessor parked — prepared statements + session
         # sysvars replay into fresh sessions at THIS process's epoch
@@ -245,6 +255,7 @@ class MySQLServer:
             except asyncio.TimeoutError:
                 pass
         self.pool.shutdown(wait=False)
+        gc.unfreeze()
 
     # ------------------------------------------------------------------
     async def _handle(self, reader, writer):

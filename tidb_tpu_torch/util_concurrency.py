@@ -22,6 +22,7 @@ held depth, violations) feeds `/status`'s "lockcheck" section and the
 
 from __future__ import annotations
 
+import collections
 import os
 import threading
 import time
@@ -175,13 +176,65 @@ class RankedLock:
         return f"<RankedLock {self.name} rank={self.rank}>"
 
 
-def make_lock(name: str):
+class FifoLock:
+    """A lock its waiters take in the order they asked for it: a release
+    hands it straight to the longest waiter.  A `threading.Lock` lets
+    whichever thread runs first take it, so a waiter can lose it again
+    and again to threads that asked later."""
+
+    __slots__ = ("_mu", "_held", "_waiters")
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._held = False
+        self._waiters = collections.deque()   # threading.Event each
+
+    def acquire(self, blocking: bool = True, timeout: float = -1):
+        with self._mu:
+            if not self._held:
+                self._held = True
+                return True
+            if not blocking:
+                return False
+            ev = threading.Event()
+            self._waiters.append(ev)
+        if ev.wait(None if timeout < 0 else timeout):
+            return True
+        with self._mu:
+            if ev.is_set():
+                return True   # handed over as the wait timed out
+            self._waiters.remove(ev)
+            return False
+
+    def release(self):
+        with self._mu:
+            if not self._held:
+                raise RuntimeError("release unlocked lock")
+            if self._waiters:
+                self._waiters.popleft().set()   # still held: handed over
+            else:
+                self._held = False
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+        return False
+
+    def locked(self):
+        with self._mu:
+            return self._held
+
+
+def make_lock(name: str, fifo: bool = False):
     """A `threading.Lock` registered under `name` (witness-wrapped when
-    `TIDB_TPU_LOCKCHECK=1`).  `name` must literal-match the site:
-    `module:Owner.attr` for instance locks, `module:GLOBAL` for module
-    globals — the static pass cross-checks the literal against the
-    construction site."""
-    lock = threading.Lock()
+    `TIDB_TPU_LOCKCHECK=1`), or with `fifo` a `FifoLock`.  `name` must
+    literal-match the site: `module:Owner.attr` for instance locks,
+    `module:GLOBAL` for module globals — the static pass cross-checks
+    the literal against the construction site."""
+    lock = FifoLock() if fifo else threading.Lock()
     if not lockcheck_enabled():
         return lock
     return RankedLock(name, lock, reentrant=False)
