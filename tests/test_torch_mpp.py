@@ -609,6 +609,83 @@ def test_no_transfers_between_rungs_when_warm(tree_pair):
     assert len(_spans(ts, "mpp.tree.final")) == 1
 
 
+#: (fixture, the tree's join order, statement, the rows each rung but the
+#: last joins, counted by the JAX package's host engine); the last rung
+#: joins the statement's rows
+EMISSION = [
+    ("estimate-64x", "tree_pair", "cust -> ord -> item",
+     "select i_qty, o_flag, c_nation from item join ord on i_ord = o_id"
+     " join cust on o_cust = c_id where i_part % 149 = 3",
+     ["select count(*) from cust join ord on o_cust = c_id"]),
+    ("fan-out", "tpch_pair", "customer -> orders -> lineitem",
+     "select o_orderkey, l_quantity from customer"
+     " join orders on c_custkey = o_custkey"
+     " join lineitem on l_orderkey = o_orderkey"
+     " where c_mktsegment = 'BUILDING'",
+     ["select count(*) from customer join orders on c_custkey = o_custkey"
+      " where c_mktsegment = 'BUILDING'"]),
+    ("left-outer", "tree_pair", "ord -> cust -> item",
+     "select o_id, c_nation, i_qty from ord join cust on o_cust = c_id"
+     " left join item on i_ord = o_id where c_nation < 2",
+     ["select count(*) from ord join cust on o_cust = c_id"
+      " where c_nation < 2"]),
+]
+
+
+@pytest.mark.parametrize("name,fixture,order,sql,prefixes", EMISSION,
+                         ids=[e[0] for e in EMISSION])
+def test_tree_emission_is_sized_from_the_count_pass(request, name, fixture,
+                                                    order, sql, prefixes):
+    """Each rung's emission buffer is the next power of two of the rows
+    its count pass found, whatever the planner estimated: a tree whose
+    estimate is 64 times its rows, a fan-out rung whose duplicate build
+    keys emit more rows than it probes, and a left-outer rung, each
+    with no emission overflow and no host fallback."""
+    from tidb_tpu_torch.copr.parallel import get_mesh
+    from tidb_tpu_torch.mpp.engine import _pow2ceil
+
+    pair = request.getfixturevalue(fixture)
+    js, ts = pair
+    plan = ts.execute("explain " + sql)[0].rows
+    tree = [r for r in plan if "MPPJoinTree" in r[0]]
+    assert tree and f"order: {order}" in tree[0][3], plan
+    names = ("mpp_tree_emit_rows_total", "mpp_tree_emit_slots_total",
+             "mpp_tree_emit_overflow_total", "mpp_tree_fallback_total")
+    before = _snap(*names)
+    got = _tree_parity(pair, sql)
+    rows, slots, over, fell = (b - a for a, b in zip(before, _snap(*names)))
+    joined = [js.query(q)[0][0] for q in prefixes] + [len(got)]
+    assert (over, fell) == (0, 0)
+    assert rows == sum(joined)
+    assert slots == get_mesh().size * sum(_pow2ceil(n) for n in joined)
+    if name == "estimate-64x":
+        assert float(tree[0][1]) >= 64 * len(got) > 0
+    elif name == "fan-out":
+        assert joined[1] > joined[0]
+    else:
+        assert any("left_outer" in r[3] for r in plan)
+        assert any(r[2] is None for r in got)
+
+
+def test_rung_over_the_card_share_falls_to_the_host(tree_pair, monkeypatch):
+    """A rung whose counted rows need more slots than the card's share
+    holds of its output columns leaves the statement to the host chain,
+    which answers it with the same rows."""
+    from tidb_tpu_torch.mpp import jointree
+
+    monkeypatch.setattr(jointree, "card_share_bytes", lambda: 1 << 12)
+    js, ts = tree_pair
+    sql = EMISSION[2][3]
+    t0, f0 = _snap("mpp_tree_joins_total", "mpp_fallback_total")
+    got = ts.query(sql)
+    t1, f1 = _snap("mpp_tree_joins_total", "mpp_fallback_total")
+    assert (t1 - t0, f1 - f0) == (0, 1)
+    assert _sorted(got) == _sorted(js.query(sql))
+    rows = ts.execute("explain analyze " + sql)[0].rows
+    assert any("host-tree [mpp rejected: rung 0" in str(r[4])
+               and "card's share" in str(r[4]) for r in rows)
+
+
 SJ = ("select count(*) from lineitem where l_orderkey in"
       " (select o_orderkey from orders where o_orderdate < '1994-09-01')")
 
@@ -806,7 +883,9 @@ def test_device_error_reaches_the_statement(pair, tree_pair, monkeypatch,
     def broken(*a, **k):
         raise RuntimeError(msg)
 
-    monkeypatch.setattr(tex, "expand_matches", broken)
+    # the emission pass: the pair engine reaches it through
+    # `expand_matches`, the tree's emit half directly
+    monkeypatch.setattr(tex, "emit_matches", broken)
     for p, sql in ((pair, INNER), (tree_pair, THREE_WAY)):
         f0 = _snap("mpp_fallback_total")[0]
         with pytest.raises(RuntimeError, match=msg):

@@ -90,7 +90,7 @@ ROW_COUNT_ATTRS = {"num_rows"}
 #: one is a program callable
 PROGRAM_BUILDERS = {"_build_mesh_core", "_build_sort_agg_core",
                     "_tile_core", "_build_tile_fn", "_build_mpp_fn",
-                    "_build_rung_fn", "_build_final_fn",
+                    "_build_rung_fn", "_build_emit_fn", "_build_final_fn",
                     "_canonical_join_fn", "_canonical_tree_fn",
                     "_canonical_grouped_fn"}
 #: the class whose instances store programs by fingerprint

@@ -206,26 +206,15 @@ def sorted_build(keys, valid):
     return sk, order, valid.sum()
 
 
-def expand_matches(sbk, bord, nb, probe_keys, probe_emit, probe_match_ok,
-                   cap_out: int, louter: bool):
-    """Two-pass count+emit join expansion over NON-UNIQUE build keys.
+def count_matches(sbk, nb, probe_keys, probe_emit, probe_match_ok,
+                  louter: bool):
+    """Pass 1 of the join expansion (`expand_matches`): each probe row's
+    match span in the sorted build keys is [lo, hi) via two
+    searchsorteds; cnt = hi - lo candidate matches, emit_cnt the rows it
+    emits (a left-outer probe row with no match still emits one).
 
-    Pass 1 (count): each probe row's match span in the sorted build keys
-    is [lo, hi) via two searchsorteds; cnt = hi - lo candidate matches.
-    Pass 2 (emit): output slot t maps back to its source probe row via a
-    searchsorted of `arange(cap_out)` over the exclusive prefix sums —
-    every (probe row, match ordinal) pair lands in one of `cap_out`
-    static output slots.
-
-    Left-outer probe rows with no match still emit ONE row (`matched`
-    False there — the engine NULL-extends the build columns).  Total
-    emissions beyond cap_out are DROPPED on the card; the returned
-    overflow scalar is how the host learns the result is incomplete.
-
-    Returns (src, bidx, out_valid, matched, overflow): per-slot source
-    probe row, matched build source row, slot-live mask, true-match-span
-    mask, and the clamped overflow count."""
-    n = probe_keys.shape[0]
+    Returns (lo, cnt, emit_cnt, total): `total`, the 0-d sum of
+    emit_cnt, is the emission buffer the pass-2 half needs."""
     pk = probe_keys.contiguous()
     lo = torch.searchsorted(sbk, pk)
     hi = torch.minimum(torch.searchsorted(sbk, pk, right=True), nb)
@@ -233,7 +222,21 @@ def expand_matches(sbk, bord, nb, probe_keys, probe_emit, probe_match_ok,
     cnt = torch.where(probe_match_ok, torch.clamp(hi - lo, min=0), zero)
     emit_cnt = (torch.where(probe_emit, torch.clamp(cnt, min=1), zero)
                 if louter else cnt)
-    total = emit_cnt.sum()
+    return lo, cnt, emit_cnt, emit_cnt.sum()
+
+
+def emit_matches(sbk, bord, counted, cap_out: int):
+    """Pass 2 of the join expansion over `count_matches`' result: output
+    slot t maps back to its source probe row via a searchsorted of
+    `arange(cap_out)` over the exclusive prefix sums, so every (probe
+    row, match ordinal) pair lands in one of `cap_out` static slots.
+    Emissions beyond cap_out are DROPPED on the card; the returned
+    overflow scalar is how the host learns the result is incomplete.
+
+    Returns (src, bidx, out_valid, matched, overflow) as
+    `expand_matches` does."""
+    lo, cnt, emit_cnt, total = counted
+    n = cnt.shape[0]
     overflow = torch.clamp(total - cap_out, min=0)
     starts = torch.cumsum(emit_cnt, 0) - emit_cnt
     t = torch.arange(cap_out, dtype=starts.dtype, device=starts.device)
@@ -244,6 +247,21 @@ def expand_matches(sbk, bord, nb, probe_keys, probe_emit, probe_match_ok,
     bpos = torch.clamp(lo[src] + j, 0, sbk.shape[0] - 1)
     out_valid = t < total
     return src, bord[bpos], out_valid, matched & out_valid, overflow
+
+
+def expand_matches(sbk, bord, nb, probe_keys, probe_emit, probe_match_ok,
+                   cap_out: int, louter: bool):
+    """Two-pass count+emit join expansion over NON-UNIQUE build keys:
+    `count_matches` then `emit_matches` into `cap_out` slots.
+
+    Left-outer probe rows with no match still emit ONE row (`matched`
+    False there — the engine NULL-extends the build columns).
+
+    Returns (src, bidx, out_valid, matched, overflow): per-slot source
+    probe row, matched build source row, slot-live mask, true-match-span
+    mask, and the clamped overflow count."""
+    return emit_matches(sbk, bord, count_matches(
+        sbk, nb, probe_keys, probe_emit, probe_match_ok, louter), cap_out)
 
 
 # ---------------------------------------------------------------------------

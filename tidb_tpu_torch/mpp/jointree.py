@@ -23,16 +23,21 @@ module runs that ladder on the card:
   scalar/grouped partial aggregation ON the card (the sort-group +
   merge emitters) so only O(G) rows leave.
 
-Per-rung overflow steps down the ladder: a blown exchange bucket retries
-THAT RUNG on the broadcast strategy (build side replicated, intermediate
-stays local), a blown emission buffer grows that rung's buffer; past
-those — or on any structural ineligibility — MPPIneligible is raised and
-the caller (MPPTreeReaderExec, mpp/reader.py) runs the same ladder as
-chained host hash joins.  The grouped final is sized from the rows the
-ladder joined and regrown on the card when its groups outrun it; only
-past the card's group limit does the agg peel to a host tail over the
-device-joined rows, like the two-table engine's agg-peel rung.  A
-device runtime failure retries on the card, then reaches the statement.
+Each rung runs in two halves inside one hold of the device door: the
+count half exchanges, sorts the build side and counts each shard's
+emission; the host reads those counts back (one small tensor) and the
+emit half expands into a buffer of the next power of two of the largest,
+so the next rung and the final run over the live rows.  A blown
+exchange bucket retries THAT RUNG on the broadcast strategy (build side
+replicated, intermediate stays local); past that, an emission larger
+than the card's share holds, or any structural ineligibility,
+MPPIneligible is raised and the caller (MPPTreeReaderExec,
+mpp/reader.py) runs the same ladder as chained host hash joins.  The
+grouped final is sized from the rows the ladder joined and regrown on
+the card when its groups outrun it; only past the card's group limit
+does the agg peel to a host tail over the device-joined rows, like the
+two-table engine's agg-peel rung.  A device runtime failure retries on
+the card, then reaches the statement.
 """
 
 from __future__ import annotations
@@ -74,7 +79,6 @@ from .engine import (
     _expr_refs,
     _group_budget,
     _group_cap,
-    _join_slack,
     _pow2ceil,
     _shard_side,
     _SideState,
@@ -104,18 +108,15 @@ TREE_FAILPOINT = "mpp/tree_rung"
 class MPPTreeOverflow(Exception):
     """One rung's exchange bucket or emission buffer blew its static
     capacity; carries the rung index and which capacity blew so the
-    ladder can step down THAT rung (partition overflow -> broadcast,
-    emission overflow -> boosted buffer)."""
+    ladder can step down THAT rung (partition overflow -> broadcast).
+    The emission buffer is sized from the rung's own count pass, so an
+    emission overflow means the two halves disagreed: the host chain
+    serves the statement."""
 
     def __init__(self, rung: int, what: str, msg: str):
         super().__init__(msg)
         self.rung = rung
         self.what = what  # "partition" | "emit"
-
-
-#: emission-buffer boost ceiling: a rung's cap_out may grow this many
-#: times (x4 per overflow) before the ladder gives up on the card
-MAX_EMIT_BOOST = 64
 
 
 @dataclass
@@ -192,17 +193,28 @@ def _slot_resolver(spec: MPPJoinTreeSpec, states, n_slots: int,
 # ---------------------------------------------------------------------------
 
 
+def _fast_filter(rung: TreeRung, conds_rw) -> bool:
+    """The span-count path: a semi/anti rung on a single-column key
+    (exact equality after combine_keys' identity) with no pair-level
+    conditions to evaluate never touches an emission buffer."""
+    return (rung.kind in ("semi", "anti_semi")
+            and len(rung.left_slots) == 1 and not conds_rw)
+
+
 def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
-                   S: int, n_in: int, cap_p: int, cap_b: int, cap_out: int,
+                   S: int, n_in: int, cap_p: int, cap_b: int,
                    conds_rw, elide_probe: bool = False, local=None,
                    owners=None):
-    """One rung's exchange program over the mesh's S shards.  Inputs: the
+    """One rung's count half over the mesh's S shards: the exchange,
+    the sorted build side and the expansion's count pass.  Inputs: the
     intermediate (one tensor a shard per slot; rung 0 builds it inline
     from side 0's scan) + the build side's cached scan columns
-    (`ops.Shards`).  Outputs: (flags, next intermediate slots, live-row
-    mask, each one tensor a shard) — the flags one int64 tensor
-    [partition overflow, emission overflow, live rows] summed across
-    shards, the rest staying on the card.
+    (`ops.Shards`).  Outputs: (sizes, counted) — `sizes` one int64
+    tensor [partition overflow, then each shard's emission rows], and
+    `counted` what the emit half (`_build_emit_fn`) reads, left on the
+    card.  A fast-filter rung has no emission: its sizes hold each
+    shard's rows kept, and `counted` is already (next intermediate
+    slots, live-row masks).
 
     `elide_probe`: the caller proved the intermediate is ALREADY
     hash-partitioned by this rung's key slots (the previous shuffle rung
@@ -212,8 +224,6 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     `local`: this process's shards (default all S); every per-shard list
     is S long with None at another process's shards (`owners[s]` the
     process of shard s)."""
-    from ..copr.torch_eval import compile_expr
-
     rung = spec.rungs[r]
     bs = states[rung.side]
     first = r == 0
@@ -223,16 +233,11 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
     b_order = list(bs.col_order)
     b_key_pos = list(rung.build_key_pos)
     left_slots = list(rung.left_slots)
-    multi = len(left_slots) > 1
     b_prep = _shard_side(bs.an, b_order, bs.n_local)
     p_prep = (_shard_side(states[0].an, states[0].col_order,
                           states[0].n_local) if first else None)
     p_order0 = list(states[0].col_order) if first else None
-    # the fast span-count path: single-column key (exact equality after
-    # combine_keys' identity) and no pair-level conditions to evaluate —
-    # semi/anti rungs then never touch the emission buffer at all
-    fast_filter = (kind in ("semi", "anti_semi") and not multi
-                   and not conds_rw)
+    fast_filter = _fast_filter(rung, conds_rw)
     shards = tuple(range(S)) if local is None else tuple(local)
     n_parr = 2 + 2 * n_slots
     n_barr = 1 + 2 * len(b_order)
@@ -319,30 +324,68 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
             b_over = zero
         overflow = p_over + b_over.to(p_over.device)
 
-        out_slots = [[None] * S for _ in range(2 * n_slots + (
-            0 if kind in ("semi", "anti_semi") else 2 * len(b_order)))]
-        keeps, j_overs = [None] * S, [None] * S
+        builds, counted, sizes = [None] * S, [None] * S, [None] * S
+        keeps = [None] * S
         for d in shards:
             sbk, bord, nb = ex.sorted_build(recv_b[0][d], b_ok[d])
             rpk, rkv = recv[0][d], recv[1][d]
-            n_recv = rpk.shape[0]
-
-            # ---- fast span-count semi/anti (no expansion) ------------
-            if fast_filter:
+            if fast_filter:  # span-count semi/anti (no expansion)
                 lo = torch.searchsorted(sbk, rpk)
                 hi = torch.minimum(torch.searchsorted(sbk, rpk, right=True),
                                    nb)
                 matched = (p_ok[d] & rkv) & (hi > lo)
                 keeps[d] = p_ok[d] & (matched if kind == "semi"
                                       else ~matched)
+                sizes[d] = keeps[d].sum()
+                continue
+            builds[d] = (sbk, bord)
+            counted[d] = ex.count_matches(sbk, nb, rpk, p_ok[d],
+                                          rkv & p_ok[d], louter)
+            sizes[d] = counted[d][3]
+        # partition overflow, then the per-shard sizes, in one gather
+        flags = torch.cat([overflow.reshape(1), ops.gather0(
+            ops.gather_shards(sizes)).to(overflow.device)])
+        if fast_filter:
+            out_slots = [[None] * S for _ in range(2 * n_slots)]
+            for d in shards:
                 for i in range(2 * n_slots):
                     out_slots[i][d] = recv[2 + i][d]
-                continue
+            return flags, (out_slots, keeps)
+        return flags, (recv, recv_b, p_ok, builds, counted)
 
-            # ---- two-pass count+emit expansion -----------------------
-            src, bidx, out_valid, matched, j_over = ex.expand_matches(
-                sbk, bord, nb, rpk, p_ok[d], rkv & p_ok[d], cap_out, louter)
-            j_overs[d] = j_over
+    return prog
+
+
+def _build_emit_fn(spec: MPPJoinTreeSpec, r: int, states, S: int,
+                   cap_out: int, conds_rw, local=None):
+    """One rung's emit half over what its count half left on the card:
+    the expansion's pass 2 into `cap_out` slots a shard, the multi-key
+    re-verify, the pair conditions and the gathers of the next
+    intermediate.  Output: (flags, next intermediate slots, live-row
+    mask, each one tensor a shard) — the flags one int64 tensor
+    [emission overflow, live rows] summed across shards."""
+    from ..copr.torch_eval import compile_expr
+
+    rung = spec.rungs[r]
+    n_slots = _slots_of_prefix(spec, r)
+    kind = rung.kind
+    louter = kind == "left_outer"
+    filt = kind in ("semi", "anti_semi")
+    b_order = list(states[rung.side].col_order)
+    b_key_pos = list(rung.build_key_pos)
+    left_slots = list(rung.left_slots)
+    multi = len(left_slots) > 1
+    shards = tuple(range(S)) if local is None else tuple(local)
+
+    def prog(counted_state):
+        recv, recv_b, p_ok, builds, counted = counted_state
+        out_slots = [[None] * S for _ in range(2 * n_slots + (
+            0 if filt else 2 * len(b_order)))]
+        keeps, j_overs = [None] * S, [None] * S
+        for d in shards:
+            sbk, bord = builds[d]
+            src, bidx, out_valid, matched, j_overs[d] = ex.emit_matches(
+                sbk, bord, counted[d], cap_out)
             hit = matched
             if multi:
                 # mix-hash candidates: re-verify TRUE per-column equality
@@ -363,8 +406,8 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                     dd, v = compile_expr(c, env, cap_out)
                     hit = hit & v & (dd != 0)
 
-            if kind in ("semi", "anti_semi"):
-                counts = torch.zeros(n_recv, dtype=torch.int32,
+            if filt:
+                counts = torch.zeros(recv[0][d].shape[0], dtype=torch.int32,
                                      device=src.device).index_add_(
                     0, src, (hit & out_valid).to(torch.int32))
                 matched_any = counts > 0
@@ -386,12 +429,11 @@ def _build_rung_fn(spec: MPPJoinTreeSpec, r: int, states, mode: str,
                     hit & recv_b[2 + 2 * j][d][bidx]
             keeps[d] = out_valid if louter else out_valid & hit
         # per shard (emission overflow, rows kept), summed in one gather
-        counts = ops.psum(ops.gather_shards([
+        flags = ops.psum(ops.gather_shards([
             None if keep is None else torch.stack(
-                [zero if fast_filter else j_overs[d].to(zero.device),
-                 keep.sum().to(zero.device)])
-            for d, keep in enumerate(keeps)])).to(overflow.device)
-        return torch.cat([overflow.reshape(1), counts]), out_slots, keeps
+                [j_overs[d], keep.sum().to(j_overs[d].device)])
+            for d, keep in enumerate(keeps)]))
+        return flags, out_slots, keeps
 
     return prog
 
@@ -564,8 +606,8 @@ def _clone_expr(e):
     return deserialize_expr(serialize_expr(e))
 
 
-def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
-                   boosts: List[int]) -> List[Chunk]:
+def _run_tree_once(storage, spec: MPPJoinTreeSpec,
+                   modes: List[str]) -> List[Chunk]:
     from ..copr.chunking import observe_chunk
     from ..copr.device_health import DEVICE_HEALTH
     from ..lifecycle import dispatch_admission, scope_check
@@ -579,7 +621,6 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         st.load()
 
     slack = _slack()
-    join_slack = _join_slack()
     grouped = spec.aggs is not None and spec.group_by is not None
     remaps = _tree_key_remaps(spec, states) if grouped else None
 
@@ -655,19 +696,15 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
                     bs.n_local)
         n_recv = (S * cap_p if mode == "shuffle" and not elide
                   else n_in)
-        # emission buffer sized by the planner's rung estimate (the whole
-        # result could land on ONE shard when the base side is a single
-        # tile), at most what the card's share holds of the rung's output
-        # columns, then boosted x4 per runtime overflow
+        # the emission buffer is sized from the rung's own count pass,
+        # within what the card's share holds of the rung's output columns
         fit = card_share_bytes() // (9 * _slots_of_prefix(spec, r + 1) + 32)
-        est_cap = min(_pow2ceil(int(2 * max(rung.est_rows, 1))),
-                      1 << max(fit.bit_length() - 1, 0))
-        cap_out = max(int(join_slack * n_recv), est_cap, 16) * boosts[r]
+        fast = _fast_filter(rung, rung_conds[r])
         conds_sig = json.dumps(
             [serialize_expr(c) for c in rung_conds[r]], sort_keys=True)
         fp = (base_fp
               + f"|r{r}|{mode}|{rung.kind}|n_in={n_in}"
-              f"|caps={cap_p},{cap_b},{cap_out}"
+              f"|caps={cap_p},{cap_b}"
               f"|lk={rung.left_slots}|el={int(elide)}"
               f"|b:{_fingerprint(bs.an, 'filter')}|Tl={bs.Tl}"
               f"|k={rung.build_key_pos}|wire={bs.wire_sig}"
@@ -675,9 +712,8 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         fn = _COMPILED.get(fp)
         if fn is None:
             fn = _build_rung_fn(spec, r, states, mode, S, n_in, cap_p,
-                                cap_b, cap_out, rung_conds[r],
-                                elide_probe=elide, local=mesh.local,
-                                owners=mesh.owners)
+                                cap_b, rung_conds[r], elide_probe=elide,
+                                local=mesh.local, owners=mesh.owners)
             _COMPILED.put(fp, fn)
         FAILPOINTS.hit(TREE_FAILPOINT, rung=r, mode=mode,
                        kind=rung.kind, device_ids=mesh_ids)
@@ -699,20 +735,47 @@ def _run_tree_once(storage, spec: MPPJoinTreeSpec, modes: List[str],
         with span("mpp.rung", idx=r, rung=mode, kind=rung.kind,
                   elided=int(elide), build_table=bs.side.table_id):
             with dispatch_admission(DISPATCH_LOCK):
-                flags, out_slots, keep = fn(*args)
-                overflow, jover, live = read_flags(flags)
+                head, counted = fn(*args)
+                overflow, *sizes = read_flags(head)
+                if overflow:
+                    raise MPPTreeOverflow(
+                        r, "partition",
+                        f"rung {r}: {overflow} rows over partition "
+                        f"capacity (cap_p={cap_p}, cap_b={cap_b}, "
+                        f"mode={mode})")
+                if fast:
+                    out_slots, keep = counted
+                    live = sum(sizes)
+                else:
+                    cap_out = _pow2ceil(max(sizes))
+                    if cap_out > fit:
+                        raise MPPIneligible(
+                            f"rung {r}: {max(sizes)} joined rows on a "
+                            f"shard need {cap_out} slots, over the "
+                            f"{fit} the card's share holds")
+                    REGISTRY.inc("mpp_tree_emit_rows_total", sum(sizes))
+                    REGISTRY.inc("mpp_tree_emit_slots_total", cap_out * S)
+                    annotate(emit_rows=sum(sizes), emit_slots=cap_out * S)
+                    efp = fp + f"|emit={cap_out}"
+                    emit = _COMPILED.get(efp)
+                    if emit is None:
+                        emit = _build_emit_fn(spec, r, states, S, cap_out,
+                                              rung_conds[r],
+                                              local=mesh.local)
+                        _COMPILED.put(efp, emit)
+                    flags, out_slots, keep = emit(counted)
+                    jover, live = read_flags(flags)
+                    if jover:
+                        raise MPPTreeOverflow(
+                            r, "emit",
+                            f"rung {r}: {jover} joined rows over the "
+                            f"emission buffer its count pass sized "
+                            f"(cap_out={cap_out}, mode={mode})")
+        # the count half's exchanged and sorted arrays go now, not when
+        # the next rung or the final has run over them
+        del counted
         observe_chunk("mpp", (time.perf_counter() - t0) * 1000.0,
                       OUT_CHUNK_ROWS)
-        if overflow:
-            raise MPPTreeOverflow(
-                r, "partition",
-                f"rung {r}: {overflow} rows over partition capacity "
-                f"(cap_p={cap_p}, cap_b={cap_b}, mode={mode})")
-        if jover:
-            raise MPPTreeOverflow(
-                r, "emit",
-                f"rung {r}: {jover} joined rows over the emission "
-                f"buffer (cap_out={cap_out}, mode={mode})")
         inter = list(out_slots)
         mask = keep
         n_in = (n_recv if rung.kind in ("semi", "anti_semi")
@@ -820,7 +883,6 @@ def _run_mpp_jointree(storage,
     from ..trace import annotate, span
 
     modes = ["shuffle"] * len(spec.rungs)
-    boosts = [1] * len(spec.rungs)
     attempts = 0
     peel = (spec.group_by is not None and spec.aggs is not None
             and not grouped_pushdown_enabled())
@@ -834,7 +896,7 @@ def _run_mpp_jointree(storage,
         try:
             with span("mpp.tree", rungs=len(spec.rungs),
                       grouped=bool(spec.group_by), peel=peel):
-                chunks = _run_tree_once(storage, run_spec, modes, boosts)
+                chunks = _run_tree_once(storage, run_spec, modes)
             mode = "tree[" + ",".join(m[0] for m in modes) + "]"
             if peel:
                 if spec.aggs is not None and spec.group_by is not None:
@@ -857,13 +919,8 @@ def _run_mpp_jointree(storage,
             continue
         except MPPTreeOverflow as e:
             if e.what == "emit":
+                # the emit half disagreed with its own count pass
                 REGISTRY.inc("mpp_tree_emit_overflow_total")
-                if boosts[e.rung] < MAX_EMIT_BOOST:
-                    # genuine join fan-out: grow THIS rung's emission
-                    # buffer and retry (duplicate keys expand the
-                    # output past the received-row estimate)
-                    boosts[e.rung] *= 4
-                    continue
             if e.what == "partition":
                 REGISTRY.inc("mpp_partition_overflow_total")
                 if modes[e.rung] == "shuffle":

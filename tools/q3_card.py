@@ -9,8 +9,12 @@ prints one EXPLAIN ANALYZE, sends `--warm` statements drawn as the
 cell's warm-up draws them, then `--statements` more one after another,
 each held against the plain reference, and reports the MPP counters'
 moves over those (the overflow, fallback and peel counters, the tree's
-groups a statement, the rows host joins emitted) and each statement's
-host-clock time.  Prints one JSON line.  Imports nothing of the JAX
+groups a statement, the rows host joins emitted, the emission fill
+share: rows the rungs' count passes found over the slots their emission
+buffers held), each statement's host-clock time, the median host-clock
+time of each phase of the tree (`mpp.rung` by index, `mpp.tree.final`:
+each holds the device door, so alone they are the door's holds) and the
+card's peak memory.  Prints one JSON line.  Imports nothing of the JAX
 package."""
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ def main(argv=None) -> int:
     from tidb_tpu_torch import ops
     from tidb_tpu_torch.metrics import REGISTRY
     from tidb_tpu_torch.session import Domain
+    from tidb_tpu_torch.trace import recorder
 
     cell = harness.load_cell("sf10_join_s3")
     scale = cell.config["scale_factor"] if args.scale is None else args.scale
@@ -62,6 +67,8 @@ def main(argv=None) -> int:
         sess.query(sql)
     tables = {t: {c: torch.from_numpy(data[t][c]).to(args.device)
                   for c in cols} for t, cols in q3["reads"].items()}
+    traces = []
+    recorder.chain_export_hook(traces.append)
     snap0 = REGISTRY.snapshot()
     ms, bad = [], 0
     for _shape, sql, p in stmts[args.warm:]:
@@ -72,10 +79,23 @@ def main(argv=None) -> int:
         bad += harness.compare([tuple(str(v) for v in r) for r in got],
                                want, True)
     snap1 = REGISTRY.snapshot()
+    recorder.unchain_export_hook(traces.append)
     n = len(ms)
     moved = {k: snap1.get(k, 0) - snap0.get(k, 0)
              for k in STEADY + ("mpp_tree_groups_total",
-                                "mpp_tree_joins_total")}
+                                "mpp_tree_joins_total",
+                                "mpp_tree_emit_rows_total",
+                                "mpp_tree_emit_slots_total")}
+    phases = {}
+    for tr in traces:
+        for sp in _walk(tr.root):
+            if sp.name == "mpp.rung":
+                key = f"rung{(sp.attrs or {}).get('idx')}"
+            elif sp.name == "mpp.tree.final":
+                key = "final"
+            else:
+                continue
+            phases.setdefault(key, []).append(sp.dur_ns / 1e6)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip() if args.device == "cuda" \
@@ -88,10 +108,22 @@ def main(argv=None) -> int:
            "group_limit": group_limit(3, 2, 1),
            "mismatched_values": bad, "moved": moved,
            "groups_per_stmt": moved["mpp_tree_groups_total"] / max(n, 1),
+           "emit_fill_pct": 100.0 * moved["mpp_tree_emit_rows_total"]
+           / max(moved["mpp_tree_emit_slots_total"], 1),
+           "phase_ms_median": {k: statistics.median(v)
+                               for k, v in sorted(phases.items())},
+           "memory_peak_bytes": torch.cuda.max_memory_allocated()
+           if args.device == "cuda" else None,
            "stmt_ms_median": statistics.median(ms), "stmt_ms_max": max(ms),
            "explain": explain}
     print(json.dumps(out))
     return 0 if bad == 0 and not any(moved[k] for k in STEADY) else 1
+
+
+def _walk(span):
+    yield span
+    for c in span.children:
+        yield from _walk(c)
 
 
 if __name__ == "__main__":
